@@ -1,0 +1,52 @@
+"""protocol_tpu_torch — the EigenTrust convergence on PyTorch and CUDA.
+
+A port of ``protocol_tpu`` (the JAX/TPU package, kept beside it as the
+reference) to an NVIDIA H100.  Structure and names mirror the
+reference so each counterpart is easy to find:
+
+- ``trust``   — ``TrustGraph`` and the backend registry
+  (``cuda-csr``, ``cuda-windowed``).
+- ``ops``     — the power iteration, the CSR step, the host-built
+  ``WindowPlan`` and the windowed step on the hand-written CUDA gather
+  kernel (``ops/csrc/gather_window.cu``).
+- ``models``  — graph and churn generators and ``EigenTrustModel``.
+
+The package never imports ``jax`` or ``protocol_tpu``.  Entry points
+run on the card unless the caller asks for the CPU: ``device=None``
+means CUDA, and raises where CUDA is absent — nothing falls back to the
+CPU behind the caller's back.  Submodules load lazily, so importing the
+package alone does not import torch.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__version__ = "0.1.0"
+
+_SUBMODULES = ("models", "ops", "trust")
+
+
+def resolve_device(device=None):
+    """The ``torch.device`` an entry point runs on: ``None`` means
+    ``"cuda"`` and raises ``RuntimeError`` when no card is visible;
+    anything else is taken as given (``"cpu"`` is how tests ask for the
+    plain path)."""
+    import torch
+
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def __getattr__(name: str):
+    if name in _SUBMODULES:
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["__version__", "resolve_device", *_SUBMODULES]

@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` exports one C function of the same name.  At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library under ``build/protocol_tpu_torch/`` at the repository root
+(listed in ``.gitignore``) and loaded with ``ctypes``.  The library's
+file name carries a digest of the source and the flags, so an edited
+source is rebuilt and never mistaken for a stale build.  Nothing here
+runs at import: the CPU test machines have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "protocol_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+#: ``(argtypes, restype)`` of each kernel source's C function.  Every
+#: pointer and the stream are ``c_void_p``: without argtypes ctypes
+#: would pass a Python int as a 32-bit C int and cut the pointer.
+SIGNATURES = {
+    "gather_window": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (pathlib.Path(root) / "bin" / "nvcc").exists():
+            return str(pathlib.Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where ``name``'s shared library lives once built."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
+    """Compile every named source that is not built yet, one ``nvcc``
+    per source, all started together.  Returns, per source built, the
+    compiler's output (``-Xptxas=-v`` register and shared-memory use)
+    and its seconds; raises with the output if a compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    running = {}
+    for name in names:
+        so = library_path(name)
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, so, time.perf_counter())
+    report = {}
+    for name, (proc, tmp, so, t0) in running.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
+        os.replace(tmp, so)
+        report[name] = {"seconds": seconds, "log": out}
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel source ``name``, built if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = SIGNATURES[name]
+            _LIBS[name] = lib
+        return lib
