@@ -3,19 +3,24 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the sources in this checkout, holds
-it against its plain PyTorch version on the card, runs the windowed
-EigenTrust convergence at the headline size (1M peers / 50M edges, 40
-power iterations) through the port's entry points, checks the result
-against the CSR formulation, the card against the CPU, and a churned
-epoch replay against a cold converge.
+Builds the port's CUDA kernels from the sources in this checkout, holds
+the windowed gather (K1) against its plain PyTorch version on the card,
+runs the windowed EigenTrust convergence at the headline size (1M peers
+/ 50M edges, 40 power iterations) through the port's entry points,
+checks the result against the CSR formulation, the card against the
+CPU, and a churned epoch replay against a cold converge.  Then it runs
+the reference's gather/transpose probes (``protocol_tpu_torch.bench``)
+at their own shapes, which hold the probe kernels K2-K4 against their
+plain versions and library calls bit for bit.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
-(per kernel: launches on the main path, agreement with the plain
-version, its time, the plain version's time and the least time the card
-could take).  The last line is ``{"ok": true, "device": {...}}``.  Any
-failed check exits non-zero before that line.  Imports nothing of JAX
+(per kernel: launches on its path — the headline converge for K1, the
+probes phase for K2-K4 — and on the main path, agreement with the plain
+version, its time, the plain version's and the library call's times and
+the least time the card could take).  The last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+before that line.  Imports nothing of JAX
 or of the ``protocol_tpu`` reference package.
 """
 
@@ -24,17 +29,11 @@ from __future__ import annotations
 import json
 import os
 import pathlib
-import statistics
 import subprocess
 import sys
 import time
 
 HERE = pathlib.Path(__file__).resolve().parent
-
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the byte bound.
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM float32 rate outside the tensor cores, for the operation bound.
-F32_OPS_PER_S = 67e12
 
 HEADLINE = dict(n=1_000_000, nnz=50_000_000, seed=7, iters=40)
 SMALL = dict(n=65_536, nnz=1_048_576, seed=0)
@@ -54,23 +53,6 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` CUDA-event-timed
-    calls, after ``warmup`` untimed ones."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def main() -> None:
     import numpy as np
     import torch
@@ -85,6 +67,9 @@ def main() -> None:
         fail(f"the port package is not beside this script: {exc}")
     if pathlib.Path(protocol_tpu_torch.__file__).resolve().parent.parent != HERE:
         fail(f"protocol_tpu_torch was imported from {protocol_tpu_torch.__file__}, not {HERE}")
+    from protocol_tpu_torch.bench import probe_fused_primitives as pfp
+    from protocol_tpu_torch.bench import probe_mosaic_gather as pmg
+    from protocol_tpu_torch.bench._timing import REPS, WARMUP, kernel_vs_plain, time_ms
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
     from protocol_tpu_torch.models.graphs import scale_free
     from protocol_tpu_torch.ops import _build
@@ -123,33 +108,28 @@ def main() -> None:
         g = TrustGraph(g.n, g.src, g.dst, w, graph.pre_trusted).sorted_by_dst()
         return graph, g, dangling, graph.pre_trust_vector()
 
-    def kernel_vs_plain(plan, args, x):
-        """K1 against its plain version on one plan: equality, max abs
-        error, and both times; the byte bound of the call."""
+    def k1_vs_plain(plan, args, x):
+        """K1 against its plain version on one plan (a difference
+        raises): max abs error, both times and the bound of the call."""
         table = torch.nn.functional.pad(x, (0, plan.table_entries - x.shape[0]))
         wid, local, weight = args[0], args[1], args[2]
-        out = gw.gather_windowed(wid, table, local, weight, n_rows=plan.n_rows)
-        ref = gw.gather_windowed_plain(wid, table, local, weight)
-        torch.cuda.synchronize()
-        equal = bool(torch.equal(out, ref))
-        err = float((out - ref).abs().max())
-        ms = time_ms(torch, lambda: gw.gather_windowed(wid, table, local, weight, n_rows=plan.n_rows))
-        plain_ms = time_ms(torch, lambda: gw.gather_windowed_plain(wid, table, local, weight))
         slots = plan.n_rows * gw.ROW
-        nbytes = 12 * slots + 4 * plan.n_rows + 4 * plan.table_entries
-        bound_ms = max(nbytes / HBM_BYTES_PER_S, slots / F32_OPS_PER_S) * 1e3
-        return dict(
-            equal=equal, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bytes=nbytes, n_rows=plan.n_rows,
+        res = kernel_vs_plain(
+            lambda: gw.gather_windowed(wid, table, local, weight, n_rows=plan.n_rows),
+            lambda: gw.gather_windowed_plain(wid, table, local, weight),
+            wrapper=gw.gather_windowed,
+            # local and weight read, out written; wid and the table once.
+            nbytes=12 * slots + 4 * plan.n_rows + 4 * plan.table_entries,
+            ops=slots,  # one multiply per slot
         )
+        return dict(res, n_rows=plan.n_rows)
 
     # -- 3. kernel on a 65,536-peer plan -----------------------------------
     _, gs, _, _ = prepared(**SMALL)
     plan_s = gw.build_window_plan(gs.src, gs.dst, gs.weight, n=gs.n)
     x_s = np.random.default_rng(1).random(gs.n).astype(np.float32)
-    res = kernel_vs_plain(plan_s, plan_s.device_args(dev), torch.from_numpy(x_s / x_s.sum()).to(dev))
+    res = k1_vs_plain(plan_s, plan_s.device_args(dev), torch.from_numpy(x_s / x_s.sum()).to(dev))
     emit("kernel", plan=f"{SMALL['n']}/{SMALL['nnz']}", **res)
-    check(res["equal"], "K1 differs from its plain version on the 65,536-peer plan")
 
     # -- 4. headline: 1M / 50M, 40 iterations ------------------------------
     graph, g, dangling, p = prepared(HEADLINE["n"], HEADLINE["nnz"], HEADLINE["seed"])
@@ -172,11 +152,15 @@ def main() -> None:
     run_windowed()  # warm-up: kernel load, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    gw.gather_windowed.launches = 0
+    # Every kernel's count set to 0 just before the main path, read just after.
+    wrappers = (gw.gather_windowed, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region)
+    for w in wrappers:
+        w.launches = 0
     t0 = time.perf_counter()
     scores = run_windowed()
     seconds = time.perf_counter() - t0
-    launches = gw.gather_windowed.launches
+    main_launches = {w.__name__: w.launches for w in wrappers}
+    launches = main_launches["gather_windowed"]
     peak = torch.cuda.max_memory_allocated()
     total = float(scores.astype(np.float64).sum())
 
@@ -205,15 +189,18 @@ def main() -> None:
         csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
     )
     check(launches == iters, f"K1 launched {launches} times in a {iters}-iteration converge")
+    check(
+        sum(main_launches.values()) == launches,
+        f"a probe kernel launched on the main path: {main_launches}",
+    )
     check(abs(total - 1.0) < 1e-3, f"scores sum to {total}")
     check(bool(np.isfinite(scores).all()) and scores.shape == (g.n,), "non-finite or mis-shaped scores")
     check(l1_csr <= 1e-5, f"windowed vs CSR L1 {l1_csr} > 1e-5")
 
     # K1 on the full plan, and the plain step pass by pass.
     t_d = torch.from_numpy(scores.astype(np.float32)).to(dev)
-    full = kernel_vs_plain(plan, args, t_d)
+    full = k1_vs_plain(plan, args, t_d)
     emit("kernel", plan=f"{HEADLINE['n']}/{HEADLINE['nnz']}", **full)
-    check(full["equal"], "K1 differs from its plain version on the 1M/50M plan")
     table = torch.nn.functional.pad(t_d, (0, plan.table_entries - g.n))
     alpha = torch.tensor(0.1, device=dev)
     wid, local, weight, seg_end, seg_first, seg_perm, dst_ptr = args
@@ -224,24 +211,30 @@ def main() -> None:
     part = gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm)
     ct = rowsum_sorted(part, dst_ptr)
     kw = dict(n_rows=plan.n_rows, table_entries=plan.table_entries)
+    contrib = w_d * t_d.index_select(0, src_d)
     step_fns = {
         "ds_cumsum_axis1": lambda: _ds_cumsum_axis1(slots),
         "bridge_partials": lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
         "rowsum_sorted": lambda: rowsum_sorted(part, dst_ptr),
         "epilogue": lambda: damp(ct, t_d, p_d, dang_d, alpha),
         "whole_step": lambda: gw.power_step_windowed(*args, t_d, p_d, dang_d, alpha, **kw),
+        # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
+        "csr_gather_multiply": lambda: w_d * t_d.index_select(0, src_d),
+        "csr_rowsum_sorted": lambda: rowsum_sorted(contrib, ptr_d),
     }
     passes = {"gather_k1": full["ms"]}
-    passes.update({name: time_ms(torch, fn, reps=10) for name, fn in step_fns.items()})
+    passes.update({name: time_ms(fn, reps=10) for name, fn in step_fns.items()})
     emit("step_passes_ms", **passes)
-    del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d
+    del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d, contrib
     kernels = [
         {
             "name": "gather_window",
             "route": "cuda",
             "source": "protocol_tpu_torch/ops/csrc/gather_window.cu",
             "replaces": "protocol_tpu/ops/gather_window.py:318",
+            "path": "headline",
             "launches": launches,
+            "main_path_launches": launches,
             "max_abs_err": full["max_abs_err"],
             "ms": full["ms"],
             "plain_ms": full["plain_ms"],
@@ -302,6 +295,58 @@ def main() -> None:
     )
     check(b.plan_outcomes["delta"] >= 1, "no churned epoch took the plan-delta path")
     check(warm_vs_cold <= 1e-4, f"warm vs cold L1 {warm_vs_cold} > 1e-4")
+    del b, cold, cur
+
+    # -- 7. probes: K2-K4 at the reference probes' shapes ------------------
+    # Each run() holds every kernel launch against its plain version (and
+    # its library call, where there is one) bit for bit and raises on a
+    # difference; each measured shape launches its kernel 1 + WARMUP + REPS
+    # times.
+    probe_kernels = {
+        "take_along_axis": (pmg.take_along_axis, "protocol_tpu_torch/ops/csrc/take_along_axis.cu",
+                            "bench/probe_mosaic_gather.py:75"),
+        "transpose2d": (pmg.transpose2d, "protocol_tpu_torch/ops/csrc/transpose2d.cu",
+                        "bench/probe_mosaic_gather.py:107"),
+        "gather_region": (pfp.gather_region, "protocol_tpu_torch/ops/csrc/gather_region.cu",
+                          "bench/probe_fused_primitives.py:93"),
+    }
+    for w, _, _ in probe_kernels.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    records = pmg.run() + pfp.run()
+    probe_seconds = time.perf_counter() - t0
+    probe_launches = {name: w.launches for name, (w, _, _) in probe_kernels.items()}
+    for rec in records:
+        emit("probe", **rec)
+    per_shape = 1 + WARMUP + REPS
+    for name, (_, source, replaces) in probe_kernels.items():
+        shapes = [r for r in records if r.get("kernel") == name]
+        check(bool(shapes), f"the probes measured no shape of {name}")
+        made = per_shape * len(shapes)
+        check(
+            probe_launches[name] == made,
+            f"{name} counted {probe_launches[name]} launches, the probes made {made}",
+        )
+        largest = max(shapes, key=lambda r: r["bytes"])
+        kernels.append(
+            {
+                "name": name,
+                "route": "cuda",
+                "source": source,
+                "replaces": replaces,
+                "path": "probes",
+                "launches": probe_launches[name],
+                "main_path_launches": main_launches[name],
+                "shape": largest["shape"],
+                "max_abs_err": max(r["max_abs_err"] for r in shapes),
+                "ms": largest["ms"],
+                "plain_ms": largest["plain_ms"],
+                "bound_ms": largest["bound_ms"],
+                "bound_by": "bytes",
+                "library_ms": largest["library_ms"],
+            }
+        )
+    emit("probes", seconds=probe_seconds, measurements=len(records), launches=probe_launches)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(

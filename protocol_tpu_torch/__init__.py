@@ -10,6 +10,9 @@ reference so each counterpart is easy to find:
   ``WindowPlan`` and the windowed step on the hand-written CUDA gather
   kernel (``ops/csrc/gather_window.cu``).
 - ``models``  — graph and churn generators and ``EigenTrustModel``.
+- ``bench``   — the reference's gather/transpose probes on the card,
+  with their hand-written CUDA kernels (``ops/csrc/take_along_axis.cu``,
+  ``transpose2d.cu``, ``gather_region.cu``).
 
 The package never imports ``jax`` or ``protocol_tpu``.  Entry points
 run on the card unless the caller asks for the CPU: ``device=None``
@@ -24,7 +27,7 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("models", "ops", "trust")
+_SUBMODULES = ("bench", "models", "ops", "trust")
 
 
 def resolve_device(device=None):

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build, load and launch the port's CUDA kernels.
 
 Each ``csrc/<name>.cu`` exports one C function of the same name.  At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
@@ -20,6 +20,8 @@ import subprocess
 import threading
 import time
 
+import torch
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "protocol_tpu_torch"
 NVCC_FLAGS = (
@@ -33,6 +35,21 @@ NVCC_FLAGS = (
 SIGNATURES = {
     "gather_window": (
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (t, idx, out, rows, cols, axis, stream)
+    "take_along_axis": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (t, out, rows, cols, stream)
+    "transpose2d": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (wid, table, local, out, n_rows, stream)
+    "gather_region": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
 }
@@ -96,3 +113,31 @@ def load(name: str) -> ctypes.CDLL:
             fn.argtypes, fn.restype = SIGNATURES[name]
             _LIBS[name] = lib
         return lib
+
+
+def operand_device(name: str, **operands: torch.Tensor) -> torch.device:
+    """The one device that kernel ``name``'s operands share: ``cpu``
+    (the wrapper then takes the plain version) or ``cuda``, where every
+    operand must also be contiguous and 16-byte aligned.  Mixed or other
+    devices raise: there is no silent fallback."""
+    devices = {a.device for a in operands.values()}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: operands must share one device, got {sorted(map(str, devices))}")
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {device.type}")
+    if device.type == "cuda":
+        for arg, a in operands.items():
+            if not a.is_contiguous() or a.data_ptr() % 16:
+                raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+    return device
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s C function with ``args`` and the current
+    stream of ``device``; raise if the card refused the launch."""
+    lib = load(name)
+    with torch.cuda.device(device):
+        rc = getattr(lib, name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
