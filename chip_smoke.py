@@ -7,18 +7,22 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 the windowed gather (K1) against its plain PyTorch version on the card,
 runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
-checks the result against the CSR formulation, the card against the
-CPU, and a churned epoch replay against a cold converge.  Then it runs
-the reference's gather/transpose probes (``protocol_tpu_torch.bench``)
-at their own shapes, which hold the probe kernels K2-K4 against their
-plain versions and library calls bit for bit.
+checks the result against the CSR formulation, holds the step's two
+double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
+``compensated_scan``) against their plain versions at the shapes the
+windowed and the CSR step give them, and the kernel route of both steps
+against their plain route, bit for bit.  Then the card against the CPU,
+and a churned epoch replay against a cold converge.  Last it runs the
+reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
+their own shapes, which hold the probe kernels K2-K4 against their plain
+versions and library calls bit for bit.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
-(per kernel: launches on its path — the headline converge for K1, the
-probes phase for K2-K4 — and on the main path, agreement with the plain
-version, its time, the plain version's and the library call's times and
-the least time the card could take).  The last line is
+(per kernel: launches on its path — the headline converge for K1, K5 and
+K6, the probes phase for K2-K4 — and on the main path, agreement with
+the plain version, its time, the plain version's and the library call's
+times and the least time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Imports nothing of JAX
 or of the ``protocol_tpu`` reference package.
@@ -69,12 +73,14 @@ def main() -> None:
         fail(f"protocol_tpu_torch was imported from {protocol_tpu_torch.__file__}, not {HERE}")
     from protocol_tpu_torch.bench import probe_fused_primitives as pfp
     from protocol_tpu_torch.bench import probe_mosaic_gather as pmg
-    from protocol_tpu_torch.bench._timing import REPS, WARMUP, kernel_vs_plain, time_ms
+    from protocol_tpu_torch.bench._timing import (
+        REPS, WARMUP, bound_by, kernel_vs_plain, same_bits, time_ms,
+    )
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
     from protocol_tpu_torch.models.graphs import scale_free
     from protocol_tpu_torch.ops import _build
     from protocol_tpu_torch.ops import gather_window as gw
-    from protocol_tpu_torch.ops.sparse import _ds_cumsum_axis1, converge_csr, damp, rowsum_sorted
+    from protocol_tpu_torch.ops import sparse as sp
     from protocol_tpu_torch.trust.backend import get_backend
     from protocol_tpu_torch.trust.graph import TrustGraph
 
@@ -153,7 +159,10 @@ def main() -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # Every kernel's count set to 0 just before the main path, read just after.
-    wrappers = (gw.gather_windowed, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region)
+    wrappers = (
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum,
+        pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
+    )
     for w in wrappers:
         w.launches = 0
     t0 = time.perf_counter()
@@ -169,7 +178,7 @@ def main() -> None:
     w_d = torch.from_numpy(g.weight).to(dev)
 
     def run_csr():
-        t, _, _ = converge_csr(
+        t, _, _ = sp.converge_csr(
             src_d, ptr_d, w_d, torch.from_numpy(p).to(dev), p_d, dang_d,
             alpha=0.1, tol=0.0, max_iter=iters,
         )
@@ -185,47 +194,214 @@ def main() -> None:
         "headline", peers=g.n, edges=g.nnz, iterations=iters, plan_seconds=plan_seconds,
         n_rows=plan.n_rows, n_segments=plan.n_segments, seg_capacity=plan.seg_capacity,
         compression=plan.compression, seconds=seconds, ms_per_iter=seconds / iters * 1e3,
-        max_memory_allocated=peak, k1_launches=launches, sum_scores=total,
-        csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
+        max_memory_allocated=peak, k1_launches=launches, launches=main_launches,
+        sum_scores=total, csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
     )
-    check(launches == iters, f"K1 launched {launches} times in a {iters}-iteration converge")
+    # A windowed step runs K1 once, K5 twice (the plan rows, then
+    # rowsum_sorted's blocks) and K6 once (the block totals).
+    expected = dict(
+        gather_windowed=iters, ds_cumsum_axis1=2 * iters, compensated_cumsum=iters,
+        take_along_axis=0, transpose2d=0, gather_region=0,
+    )
     check(
-        sum(main_launches.values()) == launches,
-        f"a probe kernel launched on the main path: {main_launches}",
+        main_launches == expected,
+        f"the {iters}-iteration converge launched {main_launches}, expected {expected}",
     )
     check(abs(total - 1.0) < 1e-3, f"scores sum to {total}")
     check(bool(np.isfinite(scores).all()) and scores.shape == (g.n,), "non-finite or mis-shaped scores")
     check(l1_csr <= 1e-5, f"windowed vs CSR L1 {l1_csr} > 1e-5")
 
-    # K1 on the full plan, and the plain step pass by pass.
+    # K1 on the full plan.
     t_d = torch.from_numpy(scores.astype(np.float32)).to(dev)
     full = k1_vs_plain(plan, args, t_d)
     emit("kernel", plan=f"{HEADLINE['n']}/{HEADLINE['nnz']}", **full)
     table = torch.nn.functional.pad(t_d, (0, plan.table_entries - g.n))
     alpha = torch.tensor(0.1, device=dev)
     wid, local, weight, seg_end, seg_first, seg_perm, dst_ptr = args
+    kw = dict(n_rows=plan.n_rows, table_entries=plan.table_entries)
     out = gw.gather_windowed(wid, table, local, weight, n_rows=plan.n_rows)
     slots = out.reshape(plan.n_rows, gw.ROW)
-    hi, lo = _ds_cumsum_axis1(slots)
+    hi, lo = sp.ds_cumsum_axis1(slots)
     hi, lo = hi.reshape(-1), lo.reshape(-1)
     part = gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm)
-    ct = rowsum_sorted(part, dst_ptr)
-    kw = dict(n_rows=plan.n_rows, table_entries=plan.table_entries)
+    ct = sp.rowsum_sorted(part, dst_ptr)
     contrib = w_d * t_d.index_select(0, src_d)
+
+    # K5 and K6 at the shapes the two steps give them, bit for bit.
+    def blocks(v):
+        """``rowsum_sorted``'s zero-padded 2048-element blocks of ``v``."""
+        b = sp._ROWSUM_BLOCK
+        n_blocks = -(-v.shape[0] // b)
+        return torch.nn.functional.pad(v, (0, n_blocks * b - v.shape[0])).reshape(n_blocks, b)
+
+    def k5_vs_plain(x):
+        rows, b = x.shape
+        levels = b.bit_length() - 1
+        nbytes, ops = 12 * x.numel(), 11 * levels * x.numel()  # x read, hi and lo written
+        res = kernel_vs_plain(
+            lambda: sp.ds_cumsum_axis1(x), lambda: sp._ds_cumsum_axis1(x),
+            wrapper=sp.ds_cumsum_axis1, nbytes=nbytes, ops=ops,  # ds_add: 11 adds a level
+        )
+        return dict(res, shape=[rows, b], ops=ops, bound_by=bound_by(nbytes, ops))
+
+    def scan_ops(n):
+        """Float adds of the block-total scan: 8 a TwoSum combine, 2 an
+        interleaved output (its + 0.0 on both lanes), level by level."""
+        sizes, m = [], n
+        while m >= 2:
+            sizes.append(m)
+            m //= 2
+        combines = sum(m // 2 + (m + 1) // 2 - 1 for m in sizes)
+        return 8 * combines + 2 * sum(sizes)
+
+    def k6_vs_plain(x):
+        n = x.shape[0]
+        nbytes, ops = 12 * n, scan_ops(n)  # x read, hi and lo written
+        res = kernel_vs_plain(
+            lambda: sp.compensated_cumsum(x), lambda: sp._compensated_cumsum(x),
+            wrapper=sp.compensated_cumsum, nbytes=nbytes, ops=ops,
+        )
+        return dict(res, shape=[n], ops=ops, bound_by=bound_by(nbytes, ops))
+
+    k5, k6 = {}, {}
+    for where, x in (
+        ("plan_rows", slots), ("windowed_blocks", blocks(part)), ("csr_blocks", blocks(contrib)),
+    ):
+        k5[where] = k5_vs_plain(x)
+        emit("kernel", kernel="ds_cumsum_rows", input=where, **k5[where])
+        if where != "plan_rows":
+            bh, bl = sp.ds_cumsum_axis1(x)
+            totals = bh[:, -1] + bl[:, -1]  # rowsum_sorted's block totals
+            k6[where] = k6_vs_plain(totals)
+            emit("kernel", kernel="compensated_scan", input=where, **k6[where])
+            del bh, bl, totals
+
+    # The card refuses what the kernels do not take, and the wrapper says so.
+    odd = torch.zeros(4, 512, device=dev)
+    try:
+        sp.ds_cumsum_axis1(odd)
+        fail("ds_cumsum_axis1 took a 512-wide row on the card")
+    except ValueError:
+        pass
+    try:
+        _build.launch("ds_cumsum_rows", dev, odd.data_ptr(), odd.data_ptr(), odd.data_ptr(), 4, 512)
+        fail("a ds_cumsum_rows launch the kernel refused did not raise")
+    except RuntimeError:
+        pass
+    del odd
+
+    # The kernel route of both steps against their plain route.
+    def windowed_step_plain(t):
+        tab = torch.nn.functional.pad(t, (0, plan.table_entries - g.n))
+        o = gw.gather_windowed_plain(wid, tab, local, weight)
+        h, l = sp._ds_cumsum_axis1(o.reshape(plan.n_rows, gw.ROW))
+        q = gw.bridge_partials(h.reshape(-1), l.reshape(-1), seg_end, seg_first, seg_perm)
+        return sp.damp(sp.rowsum_sorted_plain(q, dst_ptr), t, p_d, dang_d, alpha)
+
+    def csr_step_plain(t):
+        c = w_d * t.index_select(0, src_d)
+        return sp.damp(sp.rowsum_sorted_plain(c, ptr_d), t, p_d, dang_d, alpha)
+
+    def windowed_step():
+        return gw.power_step_windowed(*args, t_d, p_d, dang_d, alpha, **kw)
+
+    def csr_step():
+        return sp.power_step_csr(src_d, ptr_d, w_d, t_d, p_d, dang_d, alpha)
+
+    routes = {
+        "windowed": same_bits(windowed_step(), windowed_step_plain(t_d)),
+        "csr": same_bits(csr_step(), csr_step_plain(t_d)),
+    }
+    emit("route_equality", **routes)
+    check(all(routes.values()), f"kernel route differs from the plain route: {routes}")
+
+    # The step pass by pass: the kernel route, and the plain passes beside it.
     step_fns = {
-        "ds_cumsum_axis1": lambda: _ds_cumsum_axis1(slots),
+        "ds_cumsum_axis1": lambda: sp.ds_cumsum_axis1(slots),
+        "ds_cumsum_axis1_plain": lambda: sp._ds_cumsum_axis1(slots),
         "bridge_partials": lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
-        "rowsum_sorted": lambda: rowsum_sorted(part, dst_ptr),
-        "epilogue": lambda: damp(ct, t_d, p_d, dang_d, alpha),
-        "whole_step": lambda: gw.power_step_windowed(*args, t_d, p_d, dang_d, alpha, **kw),
+        "rowsum_sorted": lambda: sp.rowsum_sorted(part, dst_ptr),
+        "rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(part, dst_ptr),
+        "epilogue": lambda: sp.damp(ct, t_d, p_d, dang_d, alpha),
+        "whole_step": windowed_step,
+        "whole_step_plain": lambda: windowed_step_plain(t_d),
         # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
         "csr_gather_multiply": lambda: w_d * t_d.index_select(0, src_d),
-        "csr_rowsum_sorted": lambda: rowsum_sorted(contrib, ptr_d),
+        "csr_rowsum_sorted": lambda: sp.rowsum_sorted(contrib, ptr_d),
+        "csr_rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(contrib, ptr_d),
+        "csr_whole_step": csr_step,
+        "csr_whole_step_plain": lambda: csr_step_plain(t_d),
     }
     passes = {"gather_k1": full["ms"]}
     passes.update({name: time_ms(fn, reps=10) for name, fn in step_fns.items()})
     emit("step_passes_ms", **passes)
+
+    # Device busy time a step, from a profiler trace, beside the converges'
+    # unprofiled wall time an iteration: 1 - busy / wall is the device's idle
+    # share.  A measurement, not a check: where the trace holds no device
+    # time, or the profiler fails, the line says "not measured".
+    def device_busy(fn, steps=20):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        return by_name
+
+    profiles = {}
+    for name, fn, wall_ms in (
+        ("windowed", windowed_step, seconds / iters * 1e3),
+        ("csr", csr_step, csr_seconds / iters * 1e3),
+    ):
+        try:
+            by_name = device_busy(fn)
+        except Exception as exc:  # noqa: BLE001 - reported, not a check
+            profiles[name] = {"busy_ms": "not measured", "error": repr(exc)}
+            continue
+        if not by_name:
+            profiles[name] = {"busy_ms": "not measured", "error": "no device events in the trace"}
+            continue
+        busy = sum(by_name.values())
+        profiles[name] = {
+            "busy_ms": busy, "wall_ms_per_iter": wall_ms, "idle_share": 1.0 - busy / wall_ms,
+            "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
+        }
+    emit("step_profile", **profiles)
     del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d, contrib
+
+    def prefix_entry(name, wrapper, source, replaces, runs, main):
+        """A ``kernels`` entry: the main path's input (``main``) for the
+        times, every input's measurement under ``shapes``."""
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "path": "headline",
+            "launches": main_launches[wrapper],
+            "main_path_launches": main_launches[wrapper],
+            "shape": runs[main]["shape"],
+            "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
+            "ms": runs[main]["ms"],
+            "plain_ms": runs[main]["plain_ms"],
+            "bound_ms": runs[main]["bound_ms"],
+            "bound_by": runs[main]["bound_by"],
+            "library_ms": None,  # no one PyTorch call gives a double-single prefix
+            "shapes": {
+                where: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bytes",
+                                          "max_abs_err")}
+                for where, r in runs.items()
+            },
+        }
+
     kernels = [
         {
             "name": "gather_window",
@@ -241,24 +417,35 @@ def main() -> None:
             "bound_ms": full["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
-        }
+        },
+        prefix_entry("ds_cumsum_rows", "ds_cumsum_axis1",
+                     "protocol_tpu_torch/ops/csrc/ds_cumsum_rows.cu",
+                     "protocol_tpu/ops/sparse.py:80", k5, "plan_rows"),
+        prefix_entry("compensated_scan", "compensated_cumsum",
+                     "protocol_tpu_torch/ops/csrc/compensated_scan.cu",
+                     "protocol_tpu/ops/sparse.py:41", k6, "windowed_blocks"),
     ]
 
     # -- 5. card vs CPU at 65,536 peers ------------------------------------
     g_small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
     kw5 = dict(alpha=0.1, tol=1e-6, max_iter=60)
-    before = gw.gather_windowed.launches
+    step_wrappers = (gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum)
+    before = {w.__name__: w.launches for w in step_wrappers}
     on_card = get_backend("cuda-windowed").converge(g_small, **kw5)
-    card_launches = gw.gather_windowed.launches - before
+    card_launches = {w.__name__: w.launches - before[w.__name__] for w in step_wrappers}
     on_cpu = get_backend("cuda-windowed", device="cpu").converge(g_small, **kw5)
     l1_cpu = float(np.abs(on_card.scores - on_cpu.scores).sum())
     emit(
         "card_vs_cpu", iterations_card=on_card.iterations, iterations_cpu=on_cpu.iterations,
-        l1=l1_cpu, k1_launches=card_launches,
+        l1=l1_cpu, k1_launches=card_launches["gather_windowed"], launches=card_launches,
     )
     check(on_card.iterations == on_cpu.iterations, "card and CPU ran different iteration counts")
     check(l1_cpu <= 1e-6, f"card vs CPU L1 {l1_cpu} > 1e-6")
-    check(card_launches == on_card.iterations, "the card converge did not launch K1 each iteration")
+    it = on_card.iterations
+    check(
+        card_launches == dict(gather_windowed=it, ds_cumsum_axis1=2 * it, compensated_cumsum=it),
+        f"the card converge's {it} iterations launched {card_launches}",
+    )
 
     # -- 6. epochs: cold + churned epochs at 1% churn ----------------------
     rng = np.random.default_rng(HEADLINE["seed"])

@@ -57,19 +57,42 @@ def bound_ms(nbytes: int, ops: int = 0) -> float:
     return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
 
 
+def bound_by(nbytes: int, ops: int = 0) -> str:
+    """Which of the two sets ``bound_ms``: ``"bytes"`` or ``"operations"``."""
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+
+
+def _lanes(out) -> tuple[torch.Tensor, ...]:
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape, dtype and bit patterns: unlike ``torch.equal``, a
+    ``-0.0`` does not equal a ``+0.0``."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def kernel_vs_plain(kernel, plain, *, wrapper, nbytes: int, ops: int = 0, library=None) -> dict:
     """Call ``kernel()``, a call of the kernel's ``wrapper``, once and
     require it to equal ``plain()`` and, where given, ``library()`` bit
-    for bit (a difference raises); then time all three.  Returns the
-    times, the bound, the max abs error and ``launches``, the growth of
+    for bit, every output lane where the calls return a tuple (a
+    difference raises); then time all three.  Returns the times, the
+    bound, the max abs error and ``launches``, the growth of
     ``wrapper.launches`` over the call: ``1 + WARMUP + REPS``."""
     before = wrapper.launches
-    out = kernel()
-    ref = plain()
-    err = float((out - ref).abs().max()) if out.numel() else 0.0
-    if not torch.equal(out, ref):
+    out = _lanes(kernel())
+    ref = _lanes(plain())
+    err = max(
+        (float((o - r).abs().max()) for o, r in zip(out, ref) if o.numel() and o.shape == r.shape),
+        default=0.0,
+    )
+    if len(out) != len(ref) or not all(same_bits(o, r) for o, r in zip(out, ref)):
         raise RuntimeError(f"{wrapper.__name__} differs from its plain version (max abs err {err})")
-    if library is not None and not torch.equal(out, library()):
+    if library is not None and not all(same_bits(o, r) for o, r in zip(out, _lanes(library()))):
         raise RuntimeError(f"{wrapper.__name__} differs from its library call")
     del out, ref
     return dict(

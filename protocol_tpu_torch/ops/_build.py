@@ -52,6 +52,16 @@ SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # (x, hi, lo, rows, cols, stream)
+    "ds_cumsum_rows": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (x, hi, lo, scratch, n, stream)
+    "compensated_scan": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,136 @@
+// Inclusive double-single prefix sum along the rows of a (rows, B) matrix, on Hopper.
+//
+// Replaces the jit'd XLA pass `_ds_cumsum_axis1` (with `_ds_add`) of
+// protocol_tpu/ops/sparse.py:80 (ROADMAP B2).  It is not a Pallas kernel in the
+// reference; the port's plain version, `_ds_cumsum_axis1` in
+// protocol_tpu_torch/ops/sparse.py, repeats its arithmetic pass by pass.  For
+// every row it computes, from (hi, lo) = (x, +0.0), the Hillis-Steele scan
+//
+//     for s = 1, 2, 4, ... < B:
+//         (hi[i], lo[i]) = ds_add(hi[i], lo[i], hi[i-s], lo[i-s])
+//
+// where every element reads the PREVIOUS level's values and (+0.0, +0.0)
+// stands in for (hi[i-s], lo[i-s]) where i < s.  Those elements still go
+// through ds_add: it renormalises (hi = s + e) and turns -0.0 into +0.0, as
+// the reference's zero-filled shift does.
+//
+// Op order is the contract.  The prefix is bit-identical to the JAX package
+// on the CPU, so the kernel must equal the plain version bit for bit:
+//   - every add and subtract is __fadd_rn / __fsub_rn, in ds_add's order
+//     (e + al + bl is (e + al) + bl), so nothing is reassociated or
+//     contracted;
+//   - the source must never be built with --use_fast_math or -ftz=true:
+//     denormals survive on the CPU and must survive here.
+//
+// What bounds it.  Per element the card must read x (4 B) and write hi and lo
+// (8 B): 12 B a slot.  At the headline plan rows (52,416 x 1024, 53.7M
+// slots) that is 0.644 GB, ~0.19 ms at 3.35 TB/s.  The arithmetic, 11 float
+// adds a level over log2(B) levels, is below that at the card's float32 rate,
+// so the bound is bytes.
+//
+// How the design meets it, right before fast.  One block per row, B/4
+// threads, each holding 4 consecutive elements in registers:
+//   - one coalesced 16-byte load of x per thread;
+//   - log2(B) levels through shared memory, double-buffered so one barrier
+//     a level suffices: a thread writes its (hi, lo) float4s into buffer
+//     L % 2, waits, reads the i-s values from the same buffer and updates its
+//     registers.  A buffer written at level L+1 was last read at level L-1,
+//     before every thread passed level L's barrier.  For s >= 4 the i-s values
+//     of a thread's 4 elements are one aligned float4 (thread t - s/4); for
+//     s < 4 they are the thread's own previous-level registers and the
+//     float4 of thread t-1;
+//   - one coalesced 16-byte store each of hi and lo.
+// Shared memory: 4 float4s a thread, 16 KB at B = 1024 and 32 KB at B = 2048.
+// Shared-memory traffic (~16 B an element a level), not device memory, likely
+// bounds this simple form.  A register/shuffle scan keeping the same op tree
+// is a later redesign; note that the i-s neighbour crosses warps at every
+// level from s = 4 on, so a warp-local scan does not reproduce Hillis-Steele.
+//
+// C interface (loaded with ctypes by protocol_tpu_torch/ops/_build.py):
+//     int ds_cumsum_rows(x, hi, lo, rows, cols, stream)
+// takes cols in {1024, 2048}, launches on `stream` and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for another
+// width.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__device__ __forceinline__ void ds_add(float& ah, float& al, float bh, float bl) {
+  const float s = __fadd_rn(ah, bh);
+  const float v = __fsub_rn(s, ah);
+  float e = __fadd_rn(__fsub_rn(ah, __fsub_rn(s, v)), __fsub_rn(bh, v));
+  e = __fadd_rn(__fadd_rn(e, al), bl);
+  const float hi = __fadd_rn(s, e);
+  al = __fsub_rn(e, __fsub_rn(hi, s));
+  ah = hi;
+}
+
+template <int B>
+__global__ void __launch_bounds__(B / 4)
+ds_cumsum_rows_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
+                      float* __restrict__ lo_out) {
+  constexpr int kThreads = B / 4;
+  __shared__ float4 sh[2][kThreads];
+  __shared__ float4 sl[2][kThreads];
+  const int t = threadIdx.x;
+  const long long at = static_cast<long long>(blockIdx.x) * kThreads + t;  // float4 units
+
+  const float4 v = reinterpret_cast<const float4*>(x)[at];
+  float h[4] = {v.x, v.y, v.z, v.w};
+  float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  int buf = 0;
+#pragma unroll
+  for (int s = 1; s < B; s <<= 1) {
+    sh[buf][t] = make_float4(h[0], h[1], h[2], h[3]);
+    sl[buf][t] = make_float4(l[0], l[1], l[2], l[3]);
+    __syncthreads();
+    // bh[k], bl[k]: the previous level's value at 4t + k - s, or +0.0.
+    float bh[4], bl[4];
+    if (s >= 4) {
+      const int src = t - s / 4;
+      const float4 ph = src >= 0 ? sh[buf][src] : zero;
+      const float4 pl = src >= 0 ? sl[buf][src] : zero;
+      bh[0] = ph.x; bh[1] = ph.y; bh[2] = ph.z; bh[3] = ph.w;
+      bl[0] = pl.x; bl[1] = pl.y; bl[2] = pl.z; bl[3] = pl.w;
+    } else {
+      // Thread t-1's four elements, then this thread's own (previous level).
+      const float4 ph = t > 0 ? sh[buf][t - 1] : zero;
+      const float4 pl = t > 0 ? sl[buf][t - 1] : zero;
+      const float wh[8] = {ph.x, ph.y, ph.z, ph.w, h[0], h[1], h[2], h[3]};
+      const float wl[8] = {pl.x, pl.y, pl.z, pl.w, l[0], l[1], l[2], l[3]};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        bh[k] = wh[4 + k - s];
+        bl[k] = wl[4 + k - s];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) ds_add(h[k], l[k], bh[k], bl[k]);
+    buf ^= 1;
+  }
+  reinterpret_cast<float4*>(hi_out)[at] = make_float4(h[0], h[1], h[2], h[3]);
+  reinterpret_cast<float4*>(lo_out)[at] = make_float4(l[0], l[1], l[2], l[3]);
+}
+
+}  // namespace
+
+extern "C" int ds_cumsum_rows(const void* x, void* hi, void* lo, long long rows, long long cols,
+                              void* stream) {
+  if (rows <= 0) return 0;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto grid = static_cast<unsigned int>(rows);
+  const auto* in = static_cast<const float*>(x);
+  auto* h = static_cast<float*>(hi);
+  auto* l = static_cast<float*>(lo);
+  if (cols == 1024) {
+    ds_cumsum_rows_kernel<1024><<<grid, 1024 / 4, 0, s>>>(in, h, l);
+  } else if (cols == 2048) {
+    ds_cumsum_rows_kernel<2048><<<grid, 2048 / 4, 0, s>>>(in, h, l);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -13,14 +13,18 @@ The device side runs one damped power step per iteration:
    ``csrc/gather_window.cu`` on a card, its plain PyTorch version on
    the CPU;
 2. the row-local double-single prefix over the (n_rows, 1024) slots
-   (``ops.sparse._ds_cumsum_axis1``);
+   (``ops.sparse.ds_cumsum_axis1``: the CUDA kernel
+   ``csrc/ds_cumsum_rows.cu`` on a card);
 3. ``bridge_partials``: run partials at the bucket-order run ends, one
    ``n_segments`` permutation into dst order;
-4. ``rowsum_sorted`` over the dst-delimited partials → dense Cᵀt;
+4. ``rowsum_sorted`` over the dst-delimited partials → dense Cᵀt (its
+   two prefix passes on the CUDA kernels ``ds_cumsum_rows.cu`` and
+   ``compensated_scan.cu``);
 5. the shared damping epilogue.
 
-Steps 2-5 are jit'd XLA in the reference, not Pallas, and stay plain
-PyTorch here; everything up to Cᵀt is bit-identical to the reference.
+Steps 2-5 are jit'd XLA in the reference, not Pallas; the rest of them
+stays plain PyTorch here.  Everything up to Cᵀt is bit-identical to the
+reference.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .sparse import _ds_cumsum_axis1, damp, rowsum_sorted, run_power_iteration
+from .sparse import damp, ds_cumsum_axis1, rowsum_sorted, run_power_iteration
 
 try:
     # The C two-pass kernel underneath scipy's COO→CSR conversion; the
@@ -1052,7 +1056,7 @@ def windowed_ct(
     n = t.shape[0]
     table = torch.nn.functional.pad(t, (0, table_entries - n))
     out = gather_windowed(wid, table, local, weight, n_rows=n_rows)
-    hi, lo = _ds_cumsum_axis1(out.reshape(n_rows, ROW))
+    hi, lo = ds_cumsum_axis1(out.reshape(n_rows, ROW))
     partial = bridge_partials(hi.reshape(-1), lo.reshape(-1), seg_end, seg_first, seg_perm)
     return rowsum_sorted(partial, dst_ptr)
 

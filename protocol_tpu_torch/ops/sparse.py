@@ -9,8 +9,13 @@ Everything up to ``Cᵀt`` repeats the reference's arithmetic op for op,
 so the prefix sums and row sums are bit-identical to the JAX package
 (tests/test_torch_kernels.py); only the epilogue's two ``sum``
 reductions may run in another order.  None of these passes is a Pallas
-kernel in the reference (they are jit'd XLA), so they stay plain
-PyTorch here; their times on the card are in PERF.md.
+kernel in the reference (they are jit'd XLA).  The two prefix passes
+run as hand-written CUDA kernels on a card, with the same op order:
+``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``) and
+``compensated_cumsum`` (``csrc/compensated_scan.cu``); their plain
+versions ``_ds_cumsum_axis1`` and ``_compensated_cumsum`` serve CPU
+tensors.  The rest stays plain PyTorch; the times on the card are in
+PERF.md.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from . import _build
 
 
 def _two_sum(a, b):
@@ -67,6 +74,43 @@ def _compensated_cumsum(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def _check_prefix_operand(x: torch.Tensor, name: str, dim: int) -> None:
+    if x.dim() != dim:
+        raise ValueError(f"{name} takes a {dim}-D tensor, got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous tensor")
+
+
+def compensated_cumsum(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_compensated_cumsum`` of a contiguous 1-D float32 ``x``.
+
+    On a CUDA tensor this launches ``csrc/compensated_scan.cu`` (one
+    block, the recursion as an up- and a down-sweep) and adds one to
+    ``compensated_cumsum.launches``; a launch the card refuses raises.
+    On a CPU tensor it is the plain version.  Any other device raises."""
+    _check_prefix_operand(x, "compensated_cumsum", 1)
+    device = _build.operand_device("compensated_scan", x=x)
+    if device.type == "cpu":
+        return _compensated_cumsum(x)
+    n = x.shape[0]
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    if n:
+        # The levels above the input: n - 1 (hi, lo) pairs at most.
+        scratch = x.new_empty((n, 2))
+        _build.launch(
+            "compensated_scan", device,
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), scratch.data_ptr(), n,
+        )
+        compensated_cumsum.launches += 1
+    return hi, lo
+
+
+#: Kernel launches in this process (the plain version does not count).
+compensated_cumsum.launches = 0  # type: ignore[attr-defined]
+
+
 #: Edges per cumsum block in the hierarchical row-sum.
 _ROWSUM_BLOCK = 2048
 
@@ -101,19 +145,64 @@ def _ds_cumsum_axis1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+#: Row widths the row-prefix kernel takes: the plan's 1024-slot rows and
+#: ``rowsum_sorted``'s 2048-edge blocks.
+DS_CUMSUM_WIDTHS = (1024, _ROWSUM_BLOCK)
+
+
+def ds_cumsum_axis1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ds_cumsum_axis1`` of a contiguous 2-D float32 ``x``.
+
+    On a CUDA tensor this launches ``csrc/ds_cumsum_rows.cu`` (one block
+    a row) and adds one to ``ds_cumsum_axis1.launches``; the kernel takes
+    rows of ``DS_CUMSUM_WIDTHS`` only, another width raises, as does a
+    launch the card refuses.  On a CPU tensor it is the plain version.
+    Any other device raises."""
+    _check_prefix_operand(x, "ds_cumsum_axis1", 2)
+    device = _build.operand_device("ds_cumsum_rows", x=x)
+    if device.type == "cpu":
+        return _ds_cumsum_axis1(x)
+    rows, cols = x.shape
+    if cols not in DS_CUMSUM_WIDTHS:
+        raise ValueError(
+            f"ds_cumsum_axis1 on the card takes rows of {DS_CUMSUM_WIDTHS}, got {cols}"
+        )
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    if rows:
+        _build.launch(
+            "ds_cumsum_rows", device, x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols
+        )
+        ds_cumsum_axis1.launches += 1
+    return hi, lo
+
+
+#: Kernel launches in this process (the plain version does not count).
+ds_cumsum_axis1.launches = 0  # type: ignore[attr-defined]
+
+
 def rowsum_sorted(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """Per-row sums of dst-sorted contributions,
     ``out[j] = sum(contrib[row_ptr[j] : row_ptr[j+1]])``, through the
     reference's hierarchical double-single prefix: block-local
-    Hillis-Steele, a TwoSum scan over block totals, four pointer
-    lookups, and hi/lo-separate differencing (the hi cancellation stays
-    exact)."""
+    Hillis-Steele (``ds_cumsum_axis1``), a TwoSum scan over block totals
+    (``compensated_cumsum``), four pointer lookups, and hi/lo-separate
+    differencing (the hi cancellation stays exact)."""
+    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, compensated_cumsum)
+
+
+def rowsum_sorted_plain(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """``rowsum_sorted`` through the two prefixes' plain versions on any
+    device: the route the kernels' route is held against on the card."""
+    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_axis1, _compensated_cumsum)
+
+
+def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan) -> torch.Tensor:
     e = contrib.shape[0]
     b = _ROWSUM_BLOCK
     n_blocks = -(-e // b)
     padded = torch.nn.functional.pad(contrib, (0, n_blocks * b - e))
-    wh, wl = _ds_cumsum_axis1(padded.reshape(n_blocks, b))
-    hi_in, lo_in = _compensated_cumsum(wh[:, -1] + wl[:, -1])
+    wh, wl = ds_cumsum(padded.reshape(n_blocks, b))
+    hi_in, lo_in = scan(wh[:, -1] + wl[:, -1])
     # Exclusive block prefixes.
     zero = contrib.new_zeros(1)
     bhi = torch.cat([zero, hi_in[:-1]])
