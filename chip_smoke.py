@@ -7,11 +7,12 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 the windowed gather (K1) against its plain PyTorch version on the card,
 runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
-checks the result against the CSR formulation, holds the step's two
+checks the result against the CSR formulation, holds the step's
 double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
-``compensated_scan``) against their plain versions at the shapes the
-windowed and the CSR step give them, and the kernel route of both steps
-against their plain route, bit for bit.  Then the card against the CPU,
+``compensated_scan``), the bridge (K7 ``bridge_partials``) and the row
+sums' pointer tail (K8 ``rowsum_tail``) against their plain versions at
+the shapes the windowed and the CSR step give them, and the kernel route
+of both steps against their plain route, bit for bit.  Then the card against the CPU,
 and a churned epoch replay against a cold converge.  Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
@@ -19,8 +20,8 @@ versions and library calls bit for bit.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
-(per kernel: launches on its path — the headline converge for K1, K5 and
-K6, the probes phase for K2-K4 — and on the main path, agreement with
+(per kernel: launches on its path — the headline converge for K1 and
+K5-K8, the probes phase for K2-K4 — and on the main path, agreement with
 the plain version, its time, the plain version's and the library call's
 times and the least time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -74,7 +75,7 @@ def main() -> None:
     from protocol_tpu_torch.bench import probe_fused_primitives as pfp
     from protocol_tpu_torch.bench import probe_mosaic_gather as pmg
     from protocol_tpu_torch.bench._timing import (
-        REPS, WARMUP, bound_by, kernel_vs_plain, same_bits, time_ms,
+        REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
     )
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
     from protocol_tpu_torch.models.graphs import scale_free
@@ -160,8 +161,8 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
-        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum,
-        pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.bridge_partials,
+        sp.rowsum_tail, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
     )
     for w in wrappers:
         w.launches = 0
@@ -198,9 +199,11 @@ def main() -> None:
         sum_scores=total, csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
     )
     # A windowed step runs K1 once, K5 twice (the plan rows, then
-    # rowsum_sorted's blocks) and K6 once (the block totals).
+    # rowsum_sorted's blocks), K6 once (the block totals), K7 once (the
+    # bridge) and K8 once (the pointer tail).
     expected = dict(
         gather_windowed=iters, ds_cumsum_axis1=2 * iters, compensated_cumsum=iters,
+        bridge_partials=iters, rowsum_tail=iters,
         take_along_axis=0, transpose2d=0, gather_region=0,
     )
     check(
@@ -228,21 +231,25 @@ def main() -> None:
     contrib = w_d * t_d.index_select(0, src_d)
 
     # K5 and K6 at the shapes the two steps give them, bit for bit.
-    def blocks(v):
-        """``rowsum_sorted``'s zero-padded 2048-element blocks of ``v``."""
-        b = sp._ROWSUM_BLOCK
-        n_blocks = -(-v.shape[0] // b)
-        return torch.nn.functional.pad(v, (0, n_blocks * b - v.shape[0])).reshape(n_blocks, b)
+    block = sp._ROWSUM_BLOCK
 
-    def k5_vs_plain(x):
-        rows, b = x.shape
+    def k5_vs_plain(x, width=None):
+        """K5 on the 2-D ``x``, or, with ``width``, on the unpadded 1-D
+        ``x`` (rowsum_sorted's blocks) against the plain prefix of the
+        zero-padded copy."""
+        if width is None:
+            rows, b = x.shape
+            kernel, plain = lambda: sp.ds_cumsum_axis1(x), lambda: sp._ds_cumsum_axis1(x)
+        else:
+            rows, b = -(-x.shape[0] // width), width
+            kernel = lambda: sp.ds_cumsum_axis1(x, width)  # noqa: E731
+            plain = lambda: sp._ds_cumsum_axis1(sp._blocks(x, width))  # noqa: E731
         levels = b.bit_length() - 1
-        nbytes, ops = 12 * x.numel(), 11 * levels * x.numel()  # x read, hi and lo written
-        res = kernel_vs_plain(
-            lambda: sp.ds_cumsum_axis1(x), lambda: sp._ds_cumsum_axis1(x),
-            wrapper=sp.ds_cumsum_axis1, nbytes=nbytes, ops=ops,  # ds_add: 11 adds a level
-        )
-        return dict(res, shape=[rows, b], ops=ops, bound_by=bound_by(nbytes, ops))
+        # x read, hi and lo written; ds_add: 11 adds a level.
+        nbytes, ops = 4 * x.numel() + 8 * rows * b, 11 * levels * rows * b
+        res = kernel_vs_plain(kernel, plain, wrapper=sp.ds_cumsum_axis1, nbytes=nbytes, ops=ops)
+        return dict(res, shape=[rows, b], elements=x.numel(), ops=ops,
+                    bound_by=bound_by(nbytes, ops))
 
     def scan_ops(n):
         """Float adds of the block-total scan: 8 a TwoSum combine, 2 an
@@ -263,18 +270,59 @@ def main() -> None:
         )
         return dict(res, shape=[n], ops=ops, bound_by=bound_by(nbytes, ops))
 
-    k5, k6 = {}, {}
-    for where, x in (
-        ("plan_rows", slots), ("windowed_blocks", blocks(part)), ("csr_blocks", blocks(contrib)),
+    def k8_vs_plain(wh, wl, hi_in, lo_in, ptr):
+        """K8 on one step's blocks and pointers.  Bytes: the n + 1
+        pointers and the n outputs (4 B each), both lanes at each
+        distinct pointer (8 B), the block scans (8 B a block); counted
+        in 32-byte sectors, each distinct lane sector read on both lanes."""
+        n = ptr.shape[0] - 1
+        i = ptr.long() - 1
+        i = i[i >= 0]
+        fixed = 4 * (n + 1) + 4 * n + 8 * hi_in.shape[0]
+        nbytes = fixed + 8 * int(torch.unique(i).numel())
+        sector_bytes = fixed + 2 * 32 * int(torch.unique(i // 8).numel())
+        res = kernel_vs_plain(
+            lambda: sp.rowsum_tail(wh, wl, hi_in, lo_in, ptr),
+            lambda: sp._rowsum_tail(wh, wl, hi_in, lo_in, ptr),
+            wrapper=sp.rowsum_tail, nbytes=nbytes,
+        )
+        return dict(res, shape=list(wh.shape), pointers=n + 1, bound_by="bytes",
+                    bytes_sectors=sector_bytes, bound_ms_sectors=bound_ms(sector_bytes))
+
+    k5, k6, k8, tails = {}, {}, {}, {}
+    for where, x, width in (
+        ("plan_rows", slots, None), ("windowed_blocks", part, block), ("csr_blocks", contrib, block),
     ):
-        k5[where] = k5_vs_plain(x)
+        k5[where] = k5_vs_plain(x, width)
         emit("kernel", kernel="ds_cumsum_rows", input=where, **k5[where])
         if where != "plan_rows":
-            bh, bl = sp.ds_cumsum_axis1(x)
+            bh, bl = sp.ds_cumsum_axis1(x, width)
             totals = bh[:, -1] + bl[:, -1]  # rowsum_sorted's block totals
             k6[where] = k6_vs_plain(totals)
             emit("kernel", kernel="compensated_scan", input=where, **k6[where])
+            tails[where] = (bh, bl, *sp.compensated_cumsum(totals))
+            k8[where] = k8_vs_plain(*tails[where], dst_ptr if where == "windowed_blocks" else ptr_d)
+            emit("kernel", kernel="rowsum_tail", input=where, **k8[where])
             del bh, bl, totals
+
+    # K7 on the headline's prefix lanes and the plan's run tables.  Bytes:
+    # seg_end 4, seg_first 1, both lanes at the run end 8, seg_perm 4 and
+    # out 4 a run, each input read once (the bound used); counted in
+    # 32-byte sectors, each distinct lane sector at a run end is read on
+    # both lanes.
+    runs = seg_end.shape[0]
+    k7_bytes = 21 * runs
+    k7_sector_bytes = 13 * runs + 2 * 32 * int(torch.unique(seg_end // 8).numel())
+    k7 = {"headline": dict(
+        kernel_vs_plain(
+            lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
+            lambda: gw.bridge_partials_plain(hi, lo, seg_end, seg_first, seg_perm),
+            wrapper=gw.bridge_partials, nbytes=k7_bytes,
+        ),
+        shape=[runs], slots=hi.shape[0], bound_by="bytes",
+        bytes_sectors=k7_sector_bytes, bound_ms_sectors=bound_ms(k7_sector_bytes),
+    )}
+    emit("kernel", kernel="bridge_partials", input="headline", **k7["headline"])
 
     # The card refuses what the kernels do not take, and the wrapper says so.
     odd = torch.zeros(4, 512, device=dev)
@@ -284,18 +332,34 @@ def main() -> None:
     except ValueError:
         pass
     try:
-        _build.launch("ds_cumsum_rows", dev, odd.data_ptr(), odd.data_ptr(), odd.data_ptr(), 4, 512)
+        _build.launch(
+            "ds_cumsum_rows", dev, odd.data_ptr(), odd.data_ptr(), odd.data_ptr(), 4, 512, 4 * 512
+        )
         fail("a ds_cumsum_rows launch the kernel refused did not raise")
     except RuntimeError:
         pass
     del odd
+    lane = torch.zeros(1, block, device=dev)
+    one = torch.zeros(1, device=dev)
+    try:
+        sp.rowsum_tail(lane, lane, one, one, torch.zeros(2, dtype=torch.int64, device=dev))
+        fail("rowsum_tail took int64 row pointers on the card")
+    except TypeError:
+        pass
+    idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    try:
+        gw.bridge_partials(one, one, idx, one, idx)
+        fail("bridge_partials took a float seg_first on the card")
+    except TypeError:
+        pass
+    del lane, one, idx
 
     # The kernel route of both steps against their plain route.
     def windowed_step_plain(t):
         tab = torch.nn.functional.pad(t, (0, plan.table_entries - g.n))
         o = gw.gather_windowed_plain(wid, tab, local, weight)
         h, l = sp._ds_cumsum_axis1(o.reshape(plan.n_rows, gw.ROW))
-        q = gw.bridge_partials(h.reshape(-1), l.reshape(-1), seg_end, seg_first, seg_perm)
+        q = gw.bridge_partials_plain(h.reshape(-1), l.reshape(-1), seg_end, seg_first, seg_perm)
         return sp.damp(sp.rowsum_sorted_plain(q, dst_ptr), t, p_d, dang_d, alpha)
 
     def csr_step_plain(t):
@@ -320,6 +384,11 @@ def main() -> None:
         "ds_cumsum_axis1": lambda: sp.ds_cumsum_axis1(slots),
         "ds_cumsum_axis1_plain": lambda: sp._ds_cumsum_axis1(slots),
         "bridge_partials": lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
+        "bridge_partials_plain": lambda: gw.bridge_partials_plain(
+            hi, lo, seg_end, seg_first, seg_perm
+        ),
+        "rowsum_tail": lambda: sp.rowsum_tail(*tails["windowed_blocks"], dst_ptr),
+        "rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["windowed_blocks"], dst_ptr),
         "rowsum_sorted": lambda: sp.rowsum_sorted(part, dst_ptr),
         "rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(part, dst_ptr),
         "epilogue": lambda: sp.damp(ct, t_d, p_d, dang_d, alpha),
@@ -327,6 +396,8 @@ def main() -> None:
         "whole_step_plain": lambda: windowed_step_plain(t_d),
         # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
         "csr_gather_multiply": lambda: w_d * t_d.index_select(0, src_d),
+        "csr_rowsum_tail": lambda: sp.rowsum_tail(*tails["csr_blocks"], ptr_d),
+        "csr_rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["csr_blocks"], ptr_d),
         "csr_rowsum_sorted": lambda: sp.rowsum_sorted(contrib, ptr_d),
         "csr_rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(contrib, ptr_d),
         "csr_whole_step": csr_step,
@@ -375,11 +446,13 @@ def main() -> None:
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
         }
     emit("step_profile", **profiles)
-    del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d, contrib
+    del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d, contrib, tails
 
-    def prefix_entry(name, wrapper, source, replaces, runs, main):
-        """A ``kernels`` entry: the main path's input (``main``) for the
-        times, every input's measurement under ``shapes``."""
+    def step_entry(name, wrapper, source, replaces, runs, main):
+        """A ``kernels`` entry for a kernel of the step: the main path's
+        input (``main``) for the times, every input's measurement under
+        ``shapes``.  No one PyTorch call computes any of them."""
+        extra = {k: runs[main][k] for k in ("bound_ms_sectors",) if k in runs[main]}
         return {
             "name": name,
             "route": "cuda",
@@ -394,10 +467,11 @@ def main() -> None:
             "plain_ms": runs[main]["plain_ms"],
             "bound_ms": runs[main]["bound_ms"],
             "bound_by": runs[main]["bound_by"],
-            "library_ms": None,  # no one PyTorch call gives a double-single prefix
+            "library_ms": None,
+            **extra,
             "shapes": {
                 where: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bytes",
-                                          "max_abs_err")}
+                                          "bound_ms_sectors", "max_abs_err") if k in r}
                 for where, r in runs.items()
             },
         }
@@ -418,18 +492,27 @@ def main() -> None:
             "bound_by": "bytes",
             "library_ms": None,
         },
-        prefix_entry("ds_cumsum_rows", "ds_cumsum_axis1",
-                     "protocol_tpu_torch/ops/csrc/ds_cumsum_rows.cu",
-                     "protocol_tpu/ops/sparse.py:80", k5, "plan_rows"),
-        prefix_entry("compensated_scan", "compensated_cumsum",
-                     "protocol_tpu_torch/ops/csrc/compensated_scan.cu",
-                     "protocol_tpu/ops/sparse.py:41", k6, "windowed_blocks"),
+        step_entry("ds_cumsum_rows", "ds_cumsum_axis1",
+                   "protocol_tpu_torch/ops/csrc/ds_cumsum_rows.cu",
+                   "protocol_tpu/ops/sparse.py:80", k5, "plan_rows"),
+        step_entry("compensated_scan", "compensated_cumsum",
+                   "protocol_tpu_torch/ops/csrc/compensated_scan.cu",
+                   "protocol_tpu/ops/sparse.py:41", k6, "windowed_blocks"),
+        step_entry("bridge_partials", "bridge_partials",
+                   "protocol_tpu_torch/ops/csrc/bridge_partials.cu",
+                   "protocol_tpu/ops/gather_window.py:1007", k7, "headline"),
+        step_entry("rowsum_tail", "rowsum_tail",
+                   "protocol_tpu_torch/ops/csrc/rowsum_tail.cu",
+                   "protocol_tpu/ops/sparse.py:94", k8, "windowed_blocks"),
     ]
 
     # -- 5. card vs CPU at 65,536 peers ------------------------------------
     g_small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
     kw5 = dict(alpha=0.1, tol=1e-6, max_iter=60)
-    step_wrappers = (gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum)
+    step_wrappers = (
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.bridge_partials,
+        sp.rowsum_tail,
+    )
     before = {w.__name__: w.launches for w in step_wrappers}
     on_card = get_backend("cuda-windowed").converge(g_small, **kw5)
     card_launches = {w.__name__: w.launches - before[w.__name__] for w in step_wrappers}
@@ -443,7 +526,10 @@ def main() -> None:
     check(l1_cpu <= 1e-6, f"card vs CPU L1 {l1_cpu} > 1e-6")
     it = on_card.iterations
     check(
-        card_launches == dict(gather_windowed=it, ds_cumsum_axis1=2 * it, compensated_cumsum=it),
+        card_launches == dict(
+            gather_windowed=it, ds_cumsum_axis1=2 * it, compensated_cumsum=it,
+            bridge_partials=it, rowsum_tail=it,
+        ),
         f"the card converge's {it} iterations launched {card_launches}",
     )
 

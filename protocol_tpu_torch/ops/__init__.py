@@ -5,6 +5,7 @@ from .gather_window import (  # noqa: F401
     PLAN_VERSION,
     WindowPlan,
     bridge_partials,
+    bridge_partials_plain,
     bucket_by_window,
     build_window_plan,
     converge_windowed,

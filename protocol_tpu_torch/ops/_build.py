@@ -52,14 +52,24 @@ SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (x, hi, lo, rows, cols, stream)
+    # (x, hi, lo, rows, cols, n, stream)
     "ds_cumsum_rows": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (x, hi, lo, scratch, n, stream)
     "compensated_scan": (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (hi, lo, seg_end, seg_first, seg_perm, partial, out, s, stream)
+    "bridge_partials": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (wh, wl, hi_in, lo_in, row_ptr, out, n_blocks, block, n, stream)
+    "rowsum_tail": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
 }

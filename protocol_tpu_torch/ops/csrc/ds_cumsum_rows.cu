@@ -46,11 +46,18 @@
 // is a later redesign; note that the i-s neighbour crosses warps at every
 // level from s = 4 on, so a warp-local scan does not reproduce Hillis-Steele.
 //
+// A ragged last row.  `x` holds n <= rows * cols elements; the kernel reads
+// every element at or past n as +0.0, exactly the zero-padding that
+// `rowsum_sorted` gives its 2048-blocks, so that pass needs no padded copy of
+// its 50M contributions.  A thread whose four elements all lie below n still
+// makes one 16-byte load; the one thread that straddles n reads its elements
+// one by one.
+//
 // C interface (loaded with ctypes by protocol_tpu_torch/ops/_build.py):
-//     int ds_cumsum_rows(x, hi, lo, rows, cols, stream)
-// takes cols in {1024, 2048}, launches on `stream` and returns
-// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for another
-// width.
+//     int ds_cumsum_rows(x, hi, lo, rows, cols, n, stream)
+// takes cols in {1024, 2048} and rows * cols - cols < n <= rows * cols,
+// launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for another width or n.
 
 #include <cuda_runtime.h>
 
@@ -69,15 +76,21 @@ __device__ __forceinline__ void ds_add(float& ah, float& al, float bh, float bl)
 template <int B>
 __global__ void __launch_bounds__(B / 4)
 ds_cumsum_rows_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
-                      float* __restrict__ lo_out) {
+                      float* __restrict__ lo_out, long long n) {
   constexpr int kThreads = B / 4;
   __shared__ float4 sh[2][kThreads];
   __shared__ float4 sl[2][kThreads];
   const int t = threadIdx.x;
   const long long at = static_cast<long long>(blockIdx.x) * kThreads + t;  // float4 units
 
-  const float4 v = reinterpret_cast<const float4*>(x)[at];
-  float h[4] = {v.x, v.y, v.z, v.w};
+  float h[4];
+  if (4 * at + 4 <= n) {
+    const float4 v = reinterpret_cast<const float4*>(x)[at];
+    h[0] = v.x; h[1] = v.y; h[2] = v.z; h[3] = v.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) h[k] = 4 * at + k < n ? x[4 * at + k] : 0.0f;
+  }
   float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
@@ -118,17 +131,18 @@ ds_cumsum_rows_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
 }  // namespace
 
 extern "C" int ds_cumsum_rows(const void* x, void* hi, void* lo, long long rows, long long cols,
-                              void* stream) {
+                              long long n, void* stream) {
   if (rows <= 0) return 0;
+  if (n > rows * cols || n <= (rows - 1) * cols) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   const auto grid = static_cast<unsigned int>(rows);
   const auto* in = static_cast<const float*>(x);
   auto* h = static_cast<float*>(hi);
   auto* l = static_cast<float*>(lo);
   if (cols == 1024) {
-    ds_cumsum_rows_kernel<1024><<<grid, 1024 / 4, 0, s>>>(in, h, l);
+    ds_cumsum_rows_kernel<1024><<<grid, 1024 / 4, 0, s>>>(in, h, l, n);
   } else if (cols == 2048) {
-    ds_cumsum_rows_kernel<2048><<<grid, 2048 / 4, 0, s>>>(in, h, l);
+    ds_cumsum_rows_kernel<2048><<<grid, 2048 / 4, 0, s>>>(in, h, l, n);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,15 +16,15 @@ The device side runs one damped power step per iteration:
    (``ops.sparse.ds_cumsum_axis1``: the CUDA kernel
    ``csrc/ds_cumsum_rows.cu`` on a card);
 3. ``bridge_partials``: run partials at the bucket-order run ends, one
-   ``n_segments`` permutation into dst order;
+   ``n_segments`` permutation into dst order (the CUDA kernel
+   ``csrc/bridge_partials.cu`` on a card);
 4. ``rowsum_sorted`` over the dst-delimited partials → dense Cᵀt (its
-   two prefix passes on the CUDA kernels ``ds_cumsum_rows.cu`` and
-   ``compensated_scan.cu``);
-5. the shared damping epilogue.
+   passes on the CUDA kernels ``ds_cumsum_rows.cu``,
+   ``compensated_scan.cu`` and ``rowsum_tail.cu``);
+5. the shared damping epilogue, plain PyTorch.
 
-Steps 2-5 are jit'd XLA in the reference, not Pallas; the rest of them
-stays plain PyTorch here.  Everything up to Cᵀt is bit-identical to the
-reference.
+Steps 2-5 are jit'd XLA in the reference, not Pallas.  Everything up to
+Cᵀt is bit-identical to the reference.
 """
 
 from __future__ import annotations
@@ -1013,6 +1013,47 @@ def partition_delta(
     return owned_rows, src[mask], dst[mask], w[mask]
 
 
+def bridge_partials_plain(
+    hi: torch.Tensor,
+    lo: torch.Tensor,
+    seg_end: torch.Tensor,
+    seg_first: torch.Tensor,
+    seg_perm: torch.Tensor,
+) -> torch.Tensor:
+    """The plain PyTorch version of ``bridge_partials``.  Used for CPU
+    tensors, and on the card only to check the kernel."""
+    eh = hi.index_select(0, seg_end)
+    el = lo.index_select(0, seg_end)
+    zero = eh.new_zeros(1)
+    prev_h = torch.where(seg_first, 0.0, torch.cat([zero, eh[:-1]]))
+    prev_l = torch.where(seg_first, 0.0, torch.cat([zero, el[:-1]]))
+    # Difference hi/lo lanes separately so the hi cancellation stays
+    # exact (Sterbenz), matching rowsum_sorted's row differencing.
+    partial = (eh - prev_h) + (el - prev_l)
+    return partial.index_select(0, seg_perm)
+
+
+def _check_bridge_operands(hi, lo, seg_end, seg_first, seg_perm) -> None:
+    for name, a, dtype in (
+        ("hi", hi, torch.float32),
+        ("lo", lo, torch.float32),
+        ("seg_end", seg_end, torch.int32),
+        ("seg_first", seg_first, torch.bool),
+        ("seg_perm", seg_perm, torch.int32),
+    ):
+        if a.dim() != 1:
+            raise ValueError(f"bridge_partials: {name} must be 1-D, got shape {tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise TypeError(f"bridge_partials: {name} must be {dtype}, got {a.dtype}")
+    if lo.shape != hi.shape:
+        raise ValueError(f"bridge_partials: lo has {lo.shape[0]} slots, hi {hi.shape[0]}")
+    for name, a in (("seg_first", seg_first), ("seg_perm", seg_perm)):
+        if a.shape != seg_end.shape:
+            raise ValueError(
+                f"bridge_partials: {name} has {a.shape[0]} runs, seg_end {seg_end.shape[0]}"
+            )
+
+
 def bridge_partials(
     hi: torch.Tensor,
     lo: torch.Tensor,
@@ -1025,16 +1066,33 @@ def bridge_partials(
     bucket-order run ends (strictly increasing — it streams), the
     previous run's end as each run's start prefix (an exact zero where
     the run leads its row), and the one ``seg_perm`` permutation into
-    dst order."""
-    eh = hi.index_select(0, seg_end)
-    el = lo.index_select(0, seg_end)
-    zero = eh.new_zeros(1)
-    prev_h = torch.where(seg_first, 0.0, torch.cat([zero, eh[:-1]]))
-    prev_l = torch.where(seg_first, 0.0, torch.cat([zero, el[:-1]]))
-    # Difference hi/lo lanes separately so the hi cancellation stays
-    # exact (Sterbenz), matching rowsum_sorted's row differencing.
-    partial = (eh - prev_h) + (el - prev_l)
-    return partial.index_select(0, seg_perm)
+    dst order.  ``hi``/``lo`` are float32, ``seg_end``/``seg_perm``
+    int32 and ``seg_first`` bool, the three run tables of one length.
+
+    On CUDA tensors this launches ``csrc/bridge_partials.cu`` (the run
+    partials in bucket order, then the permutation) and adds one to
+    ``bridge_partials.launches``; a launch the card refuses raises.  On
+    CPU tensors it is the plain version.  Mixed or other devices
+    raise."""
+    _check_bridge_operands(hi, lo, seg_end, seg_first, seg_perm)
+    device = _build.operand_device(
+        "bridge_partials", hi=hi, lo=lo, seg_end=seg_end, seg_first=seg_first, seg_perm=seg_perm
+    )
+    if device.type == "cpu":
+        return bridge_partials_plain(hi, lo, seg_end, seg_first, seg_perm)
+    s = seg_end.shape[0]
+    partial, out = hi.new_empty(s), hi.new_empty(s)
+    if s:
+        _build.launch(
+            "bridge_partials", device, hi.data_ptr(), lo.data_ptr(), seg_end.data_ptr(),
+            seg_first.data_ptr(), seg_perm.data_ptr(), partial.data_ptr(), out.data_ptr(), s,
+        )
+        bridge_partials.launches += 1
+    return out
+
+
+#: Kernel launches in this process (the plain version does not count).
+bridge_partials.launches = 0  # type: ignore[attr-defined]
 
 
 def windowed_ct(

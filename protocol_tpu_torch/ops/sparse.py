@@ -9,13 +9,14 @@ Everything up to ``Cᵀt`` repeats the reference's arithmetic op for op,
 so the prefix sums and row sums are bit-identical to the JAX package
 (tests/test_torch_kernels.py); only the epilogue's two ``sum``
 reductions may run in another order.  None of these passes is a Pallas
-kernel in the reference (they are jit'd XLA).  The two prefix passes
-run as hand-written CUDA kernels on a card, with the same op order:
-``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``) and
-``compensated_cumsum`` (``csrc/compensated_scan.cu``); their plain
-versions ``_ds_cumsum_axis1`` and ``_compensated_cumsum`` serve CPU
-tensors.  The rest stays plain PyTorch; the times on the card are in
-PERF.md.
+kernel in the reference (they are jit'd XLA).  ``rowsum_sorted``'s three
+passes run as hand-written CUDA kernels on a card, with the same op
+order: ``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``),
+``compensated_cumsum`` (``csrc/compensated_scan.cu``) and
+``rowsum_tail`` (``csrc/rowsum_tail.cu``); their plain versions
+``_ds_cumsum_axis1``, ``_compensated_cumsum`` and ``_rowsum_tail`` serve
+CPU tensors.  The CSR gather-multiply and the epilogue stay plain
+PyTorch; the times on the card are in PERF.md.
 """
 
 from __future__ import annotations
@@ -145,32 +146,52 @@ def _ds_cumsum_axis1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return hi, lo
 
 
+def _blocks(x: torch.Tensor, width: int) -> torch.Tensor:
+    """The 1-D ``x`` in rows of ``width``, the last row zero-padded."""
+    rows = -(-x.shape[0] // width)
+    return torch.nn.functional.pad(x, (0, rows * width - x.shape[0])).reshape(rows, width)
+
+
+def _ds_cumsum_blocks(x: torch.Tensor, width: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``ds_cumsum_axis1(x, width)``: the prefix of
+    the zero-padded copy."""
+    return _ds_cumsum_axis1(_blocks(x, width))
+
+
 #: Row widths the row-prefix kernel takes: the plan's 1024-slot rows and
 #: ``rowsum_sorted``'s 2048-edge blocks.
 DS_CUMSUM_WIDTHS = (1024, _ROWSUM_BLOCK)
 
 
-def ds_cumsum_axis1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_ds_cumsum_axis1`` of a contiguous 2-D float32 ``x``.
+def ds_cumsum_axis1(
+    x: torch.Tensor, width: int | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ds_cumsum_axis1`` of a contiguous 2-D float32 ``x``; with
+    ``width``, of a contiguous 1-D ``x`` in rows of ``width``, the last
+    row zero-padded (``rowsum_sorted``'s blocks).
 
     On a CUDA tensor this launches ``csrc/ds_cumsum_rows.cu`` (one block
-    a row) and adds one to ``ds_cumsum_axis1.launches``; the kernel takes
-    rows of ``DS_CUMSUM_WIDTHS`` only, another width raises, as does a
-    launch the card refuses.  On a CPU tensor it is the plain version.
-    Any other device raises."""
-    _check_prefix_operand(x, "ds_cumsum_axis1", 2)
+    a row) and adds one to ``ds_cumsum_axis1.launches``; the kernel reads
+    the 1-D form's padding as +0.0, so no padded copy is made.  It takes
+    rows of ``DS_CUMSUM_WIDTHS`` only: another width raises, as does a
+    launch the card refuses.  On a CPU tensor it is the plain version
+    (of the padded copy, for the 1-D form).  Any other device raises."""
+    _check_prefix_operand(x, "ds_cumsum_axis1", 2 if width is None else 1)
+    if width is not None and width < 1:
+        raise ValueError(f"ds_cumsum_axis1 takes a positive width, got {width}")
     device = _build.operand_device("ds_cumsum_rows", x=x)
     if device.type == "cpu":
-        return _ds_cumsum_axis1(x)
-    rows, cols = x.shape
+        return _ds_cumsum_axis1(x) if width is None else _ds_cumsum_blocks(x, width)
+    n = x.numel()
+    rows, cols = x.shape if width is None else (-(-n // width), width)
     if cols not in DS_CUMSUM_WIDTHS:
         raise ValueError(
             f"ds_cumsum_axis1 on the card takes rows of {DS_CUMSUM_WIDTHS}, got {cols}"
         )
-    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    hi, lo = x.new_empty((rows, cols)), x.new_empty((rows, cols))
     if rows:
         _build.launch(
-            "ds_cumsum_rows", device, x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols
+            "ds_cumsum_rows", device, x.data_ptr(), hi.data_ptr(), lo.data_ptr(), rows, cols, n
         )
         ds_cumsum_axis1.launches += 1
     return hi, lo
@@ -180,31 +201,21 @@ def ds_cumsum_axis1(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 ds_cumsum_axis1.launches = 0  # type: ignore[attr-defined]
 
 
-def rowsum_sorted(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """Per-row sums of dst-sorted contributions,
-    ``out[j] = sum(contrib[row_ptr[j] : row_ptr[j+1]])``, through the
-    reference's hierarchical double-single prefix: block-local
-    Hillis-Steele (``ds_cumsum_axis1``), a TwoSum scan over block totals
-    (``compensated_cumsum``), four pointer lookups, and hi/lo-separate
-    differencing (the hi cancellation stays exact)."""
-    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, compensated_cumsum)
-
-
-def rowsum_sorted_plain(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
-    """``rowsum_sorted`` through the two prefixes' plain versions on any
-    device: the route the kernels' route is held against on the card."""
-    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_axis1, _compensated_cumsum)
-
-
-def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan) -> torch.Tensor:
-    e = contrib.shape[0]
-    b = _ROWSUM_BLOCK
-    n_blocks = -(-e // b)
-    padded = torch.nn.functional.pad(contrib, (0, n_blocks * b - e))
-    wh, wl = ds_cumsum(padded.reshape(n_blocks, b))
-    hi_in, lo_in = scan(wh[:, -1] + wl[:, -1])
+def _rowsum_tail(
+    wh: torch.Tensor,
+    wl: torch.Tensor,
+    hi_in: torch.Tensor,
+    lo_in: torch.Tensor,
+    row_ptr: torch.Tensor,
+) -> torch.Tensor:
+    """``rowsum_sorted``'s tail: the inclusive prefix before every row
+    pointer, from the block-local prefix lanes ``(wh, wl)`` and the scan
+    ``(hi_in, lo_in)`` of the block totals (four lookups and one
+    double-single add), then hi/lo-separate differencing (the hi
+    cancellation stays exact)."""
+    n_blocks, b = wh.shape
     # Exclusive block prefixes.
-    zero = contrib.new_zeros(1)
+    zero = wh.new_zeros(1)
     bhi = torch.cat([zero, hi_in[:-1]])
     blo = torch.cat([zero, lo_in[:-1]])
     # Inclusive prefix at index i-1 for every row pointer (i=0 -> 0);
@@ -222,6 +233,87 @@ def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan) -> torch.Tensor:
     ph = torch.where(i < 0, 0.0, ph)
     pl = torch.where(i < 0, 0.0, pl)
     return (ph[1:] - ph[:-1]) + (pl[1:] - pl[:-1])
+
+
+def _check_tail_operands(wh, wl, hi_in, lo_in, row_ptr) -> None:
+    for name, a, dim, dtype in (
+        ("wh", wh, 2, torch.float32),
+        ("wl", wl, 2, torch.float32),
+        ("hi_in", hi_in, 1, torch.float32),
+        ("lo_in", lo_in, 1, torch.float32),
+        ("row_ptr", row_ptr, 1, torch.int32),
+    ):
+        if a.dim() != dim:
+            raise ValueError(f"rowsum_tail: {name} must be {dim}-D, got shape {tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise TypeError(f"rowsum_tail: {name} must be {dtype}, got {a.dtype}")
+    if wl.shape != wh.shape:
+        raise ValueError(f"rowsum_tail: wl has shape {tuple(wl.shape)}, wh {tuple(wh.shape)}")
+    for name, a in (("hi_in", hi_in), ("lo_in", lo_in)):
+        if a.shape[0] != wh.shape[0]:
+            raise ValueError(f"rowsum_tail: {name} must hold {wh.shape[0]} block totals")
+    if row_ptr.shape[0] < 1:
+        raise ValueError("rowsum_tail: row_ptr needs at least one pointer")
+
+
+def rowsum_tail(
+    wh: torch.Tensor,
+    wl: torch.Tensor,
+    hi_in: torch.Tensor,
+    lo_in: torch.Tensor,
+    row_ptr: torch.Tensor,
+) -> torch.Tensor:
+    """``_rowsum_tail`` of float32 lanes ``(wh, wl)`` (n_blocks, B),
+    float32 block-total scans ``(hi_in, lo_in)`` (n_blocks,) and int32
+    ``row_ptr`` (n + 1,): the n row sums.
+
+    On CUDA tensors this launches ``csrc/rowsum_tail.cu`` (one thread a
+    pointer) and adds one to ``rowsum_tail.launches``; a launch the card
+    refuses raises.  On CPU tensors it is the plain version.  Mixed or
+    other devices raise."""
+    _check_tail_operands(wh, wl, hi_in, lo_in, row_ptr)
+    device = _build.operand_device(
+        "rowsum_tail", wh=wh, wl=wl, hi_in=hi_in, lo_in=lo_in, row_ptr=row_ptr
+    )
+    if device.type == "cpu":
+        return _rowsum_tail(wh, wl, hi_in, lo_in, row_ptr)
+    n_blocks, b = wh.shape
+    n = row_ptr.shape[0] - 1
+    out = wh.new_empty(n)
+    if n:
+        _build.launch(
+            "rowsum_tail", device, wh.data_ptr(), wl.data_ptr(), hi_in.data_ptr(),
+            lo_in.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n_blocks, b, n,
+        )
+        rowsum_tail.launches += 1
+    return out
+
+
+#: Kernel launches in this process (the plain version does not count).
+rowsum_tail.launches = 0  # type: ignore[attr-defined]
+
+
+def rowsum_sorted(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """Per-row sums of dst-sorted contributions,
+    ``out[j] = sum(contrib[row_ptr[j] : row_ptr[j+1]])``, through the
+    reference's hierarchical double-single prefix: block-local
+    Hillis-Steele over zero-padded 2048-blocks (``ds_cumsum_axis1``), a
+    TwoSum scan over block totals (``compensated_cumsum``), then the
+    pointer lookups and hi/lo-separate differencing (``rowsum_tail``)."""
+    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, compensated_cumsum, rowsum_tail)
+
+
+def rowsum_sorted_plain(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
+    """``rowsum_sorted`` through the three passes' plain versions on any
+    device, the padding into blocks a real copy: the route the kernels'
+    route is held against on the card."""
+    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_blocks, _compensated_cumsum, _rowsum_tail)
+
+
+def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan, tail) -> torch.Tensor:
+    wh, wl = ds_cumsum(contrib, _ROWSUM_BLOCK)
+    hi_in, lo_in = scan(wh[:, -1] + wl[:, -1])
+    return tail(wh, wl, hi_in, lo_in, row_ptr)
 
 
 def damp(

@@ -331,9 +331,9 @@ def spied(monkeypatch):
     calls = {"ds_cumsum_axis1": 0, "compensated_cumsum": 0}
 
     def spy(name, fn):
-        def wrapped(x):
+        def wrapped(*args):
             calls[name] += 1
-            return fn(x)
+            return fn(*args)
         return wrapped
 
     ds = spy("ds_cumsum_axis1", tsp.ds_cumsum_axis1)
