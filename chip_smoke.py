@@ -9,10 +9,12 @@ runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
 checks the result against the CSR formulation, holds the step's
 double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
-``compensated_scan``), the bridge (K7 ``bridge_partials``) and the row
-sums' pointer tail (K8 ``rowsum_tail``) against their plain versions at
-the shapes the windowed and the CSR step give them, and the kernel route
-of both steps against their plain route, bit for bit.  Then the card against the CPU,
+``compensated_scan``), the row prefix and bridge (K7 ``prefix_bridge``)
+and the row sums' pointer tail (K8 ``rowsum_tail``) against their plain
+versions at the shapes the windowed and the CSR step give them (K7 also
+on the 65,536-peer plan, and K5 also at the plan rows, which K7 now
+covers), and the kernel route of both steps against their plain route,
+bit for bit.  Then the card against the CPU,
 and a churned epoch replay against a cold converge.  Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
@@ -75,7 +77,7 @@ def main() -> None:
     from protocol_tpu_torch.bench import probe_fused_primitives as pfp
     from protocol_tpu_torch.bench import probe_mosaic_gather as pmg
     from protocol_tpu_torch.bench._timing import (
-        REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
+        F32_OPS_PER_S, REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
     )
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
     from protocol_tpu_torch.models.graphs import scale_free
@@ -131,6 +133,24 @@ def main() -> None:
         )
         return dict(res, n_rows=plan.n_rows)
 
+    def device_busy(fn, steps=20):
+        """Device time a call of ``fn`` by kernel name, in ms, from a
+        ``torch.profiler`` trace over ``steps`` calls."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        return by_name
+
     # -- 3. kernel on a 65,536-peer plan -----------------------------------
     _, gs, _, _ = prepared(**SMALL)
     plan_s = gw.build_window_plan(gs.src, gs.dst, gs.weight, n=gs.n)
@@ -161,7 +181,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
-        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.bridge_partials,
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.prefix_bridge,
         sp.rowsum_tail, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
     )
     for w in wrappers:
@@ -198,12 +218,12 @@ def main() -> None:
         max_memory_allocated=peak, k1_launches=launches, launches=main_launches,
         sum_scores=total, csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
     )
-    # A windowed step runs K1 once, K5 twice (the plan rows, then
-    # rowsum_sorted's blocks), K6 once (the block totals), K7 once (the
-    # bridge) and K8 once (the pointer tail).
+    # A windowed step runs K1 once, K7 once (the plan rows' prefix and the
+    # bridge), K5 once (rowsum_sorted's blocks), K6 once (the block
+    # totals) and K8 once (the pointer tail).
     expected = dict(
-        gather_windowed=iters, ds_cumsum_axis1=2 * iters, compensated_cumsum=iters,
-        bridge_partials=iters, rowsum_tail=iters,
+        gather_windowed=iters, ds_cumsum_axis1=iters, compensated_cumsum=iters,
+        prefix_bridge=iters, rowsum_tail=iters,
         take_along_axis=0, transpose2d=0, gather_region=0,
     )
     check(
@@ -224,9 +244,10 @@ def main() -> None:
     kw = dict(n_rows=plan.n_rows, table_entries=plan.table_entries)
     out = gw.gather_windowed(wid, table, local, weight, n_rows=plan.n_rows)
     slots = out.reshape(plan.n_rows, gw.ROW)
-    hi, lo = sp.ds_cumsum_axis1(slots)
-    hi, lo = hi.reshape(-1), lo.reshape(-1)
-    part = gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm)
+    t0 = time.perf_counter()
+    run_ptr = gw.row_run_ptr(seg_end, seg_first, plan.n_rows)
+    run_ptr_seconds = time.perf_counter() - t0
+    part = gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr)
     ct = sp.rowsum_sorted(part, dst_ptr)
     contrib = w_d * t_d.index_select(0, src_d)
 
@@ -305,24 +326,63 @@ def main() -> None:
             emit("kernel", kernel="rowsum_tail", input=where, **k8[where])
             del bh, bl, totals
 
-    # K7 on the headline's prefix lanes and the plan's run tables.  Bytes:
-    # seg_end 4, seg_first 1, both lanes at the run end 8, seg_perm 4 and
-    # out 4 a run, each input read once (the bound used); counted in
-    # 32-byte sectors, each distinct lane sector at a run end is read on
-    # both lanes.
-    runs = seg_end.shape[0]
-    k7_bytes = 21 * runs
-    k7_sector_bytes = 13 * runs + 2 * 32 * int(torch.unique(seg_end // 8).numel())
-    k7 = {"headline": dict(
-        kernel_vs_plain(
-            lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
-            lambda: gw.bridge_partials_plain(hi, lo, seg_end, seg_first, seg_perm),
-            wrapper=gw.bridge_partials, nbytes=k7_bytes,
-        ),
-        shape=[runs], slots=hi.shape[0], bound_by="bytes",
-        bytes_sectors=k7_sector_bytes, bound_ms_sectors=bound_ms(k7_sector_bytes),
-    )}
-    emit("kernel", kernel="bridge_partials", input="headline", **k7["headline"])
+    # K7 at the headline's and the 65k plan's slots and run tables.
+    def k7_smem_bytes(rows_with_runs, runs, unflagged):
+        """Bytes prefix_bridge.cu moves through shared memory: per row
+        with runs, at each level every thread's (hi, lo) float4 pair
+        written and its partner's read (64 B a thread), then the row's
+        final prefix (8 KB); per run both prefixes at its end, and at the
+        previous run's end where the run is not flagged."""
+        threads, levels = gw.ROW // 4, gw.ROW.bit_length() - 1
+        per_row = levels * threads * 64 + 8 * gw.ROW
+        return rows_with_runs * per_row + 8 * runs + 8 * unflagged
+
+    def k7_vs_plain(n_rows, slots, seg_end, seg_first, seg_perm, run_ptr):
+        """K7 against its plain version (a difference raises).  Bytes:
+        the slots of the rows with runs (no other row's prefix reaches
+        the output), seg_end, seg_perm and out 4 B a run, seg_first 1 B,
+        the row pointers; operations: ds_add's 11 adds a slot a level
+        over those rows, 3 a run."""
+        runs = seg_end.shape[0]
+        rows_with_runs = int((run_ptr[1:] > run_ptr[:-1]).sum())
+        unflagged = int((~seg_first).sum()) - int(runs > 0 and not bool(seg_first[0]))
+        levels = gw.ROW.bit_length() - 1
+        nbytes = 4 * rows_with_runs * gw.ROW + 13 * runs + 4 * (n_rows + 1)
+        ops = 11 * levels * rows_with_runs * gw.ROW + 3 * runs
+        res = kernel_vs_plain(
+            lambda: gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr),
+            lambda: gw.prefix_bridge_plain(slots, seg_end, seg_first, seg_perm),
+            wrapper=gw.prefix_bridge, nbytes=nbytes, ops=ops,
+        )
+        smem = k7_smem_bytes(rows_with_runs, runs, unflagged)
+        try:
+            launch_ms = device_busy(
+                lambda: gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr)
+            )
+        except Exception as exc:  # noqa: BLE001 - reported, not a check
+            launch_ms = {"not measured": repr(exc)}
+        return dict(
+            res, shape=[n_rows, gw.ROW], runs=runs, rows_with_runs=rows_with_runs, ops=ops,
+            bound_by=bound_by(nbytes, ops),
+            # Adds issue at one a lane a clock, half the fused multiply-add rate.
+            add_issue_ms=2 * ops / F32_OPS_PER_S * 1e3,
+            smem_bytes=smem, smem_ms_at_28_TBps=smem / 28e12 * 1e3, launch_ms=launch_ms,
+        )
+
+    k7 = {"headline": k7_vs_plain(plan.n_rows, slots, seg_end, seg_first, seg_perm, run_ptr)}
+    emit("kernel", kernel="prefix_bridge", input="headline", **k7["headline"])
+    args_s = plan_s.device_args(dev)
+    table_s = torch.nn.functional.pad(
+        torch.from_numpy(x_s / x_s.sum()).to(dev), (0, plan_s.table_entries - gs.n)
+    )
+    slots_s = gw.gather_windowed(
+        args_s[0], table_s, args_s[1], args_s[2], n_rows=plan_s.n_rows
+    ).reshape(plan_s.n_rows, gw.ROW)
+    k7["small"] = k7_vs_plain(
+        plan_s.n_rows, slots_s, *args_s[3:6], gw.row_run_ptr(args_s[3], args_s[4], plan_s.n_rows)
+    )
+    emit("kernel", kernel="prefix_bridge", input=f"{SMALL['n']}/{SMALL['nnz']}", **k7["small"])
+    del args_s, table_s, slots_s
 
     # The card refuses what the kernels do not take, and the wrapper says so.
     odd = torch.zeros(4, 512, device=dev)
@@ -347,12 +407,19 @@ def main() -> None:
     except TypeError:
         pass
     idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptr2 = torch.zeros(2, dtype=torch.int32, device=dev)
+    row = torch.zeros(1, gw.ROW, device=dev)
     try:
-        gw.bridge_partials(one, one, idx, one, idx)
-        fail("bridge_partials took a float seg_first on the card")
+        gw.prefix_bridge(row, idx, one, idx, ptr2)
+        fail("prefix_bridge took a float seg_first on the card")
     except TypeError:
         pass
-    del lane, one, idx
+    try:
+        gw.prefix_bridge(lane, idx, idx.bool(), idx, ptr2)
+        fail(f"prefix_bridge took {block}-wide slots on the card")
+    except ValueError:
+        pass
+    del lane, one, idx, ptr2, row
 
     # The kernel route of both steps against their plain route.
     def windowed_step_plain(t):
@@ -367,7 +434,7 @@ def main() -> None:
         return sp.damp(sp.rowsum_sorted_plain(c, ptr_d), t, p_d, dang_d, alpha)
 
     def windowed_step():
-        return gw.power_step_windowed(*args, t_d, p_d, dang_d, alpha, **kw)
+        return gw.power_step_windowed(*args, t_d, p_d, dang_d, alpha, run_ptr=run_ptr, **kw)
 
     def csr_step():
         return sp.power_step_csr(src_d, ptr_d, w_d, t_d, p_d, dang_d, alpha)
@@ -381,12 +448,8 @@ def main() -> None:
 
     # The step pass by pass: the kernel route, and the plain passes beside it.
     step_fns = {
-        "ds_cumsum_axis1": lambda: sp.ds_cumsum_axis1(slots),
-        "ds_cumsum_axis1_plain": lambda: sp._ds_cumsum_axis1(slots),
-        "bridge_partials": lambda: gw.bridge_partials(hi, lo, seg_end, seg_first, seg_perm),
-        "bridge_partials_plain": lambda: gw.bridge_partials_plain(
-            hi, lo, seg_end, seg_first, seg_perm
-        ),
+        "prefix_bridge": lambda: gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr),
+        "prefix_bridge_plain": lambda: gw.prefix_bridge_plain(slots, seg_end, seg_first, seg_perm),
         "rowsum_tail": lambda: sp.rowsum_tail(*tails["windowed_blocks"], dst_ptr),
         "rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["windowed_blocks"], dst_ptr),
         "rowsum_sorted": lambda: sp.rowsum_sorted(part, dst_ptr),
@@ -405,28 +468,17 @@ def main() -> None:
     }
     passes = {"gather_k1": full["ms"]}
     passes.update({name: time_ms(fn, reps=10) for name, fn in step_fns.items()})
+    # Once a converge, before its loop, with three host reads: outside the step.
+    passes["row_run_ptr_once_a_converge"] = time_ms(
+        lambda: gw.row_run_ptr(seg_end, seg_first, plan.n_rows), reps=10
+    )
+    passes["row_run_ptr_host_seconds"] = run_ptr_seconds
     emit("step_passes_ms", **passes)
 
     # Device busy time a step, from a profiler trace, beside the converges'
     # unprofiled wall time an iteration: 1 - busy / wall is the device's idle
     # share.  A measurement, not a check: where the trace holds no device
     # time, or the profiler fails, the line says "not measured".
-    def device_busy(fn, steps=20):
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-        return by_name
-
     profiles = {}
     for name, fn, wall_ms in (
         ("windowed", windowed_step, seconds / iters * 1e3),
@@ -446,9 +498,9 @@ def main() -> None:
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
         }
     emit("step_profile", **profiles)
-    del out, slots, hi, lo, part, ct, step_fns, src_d, ptr_d, w_d, contrib, tails
+    del out, slots, part, ct, step_fns, src_d, ptr_d, w_d, contrib, tails, run_ptr
 
-    def step_entry(name, wrapper, source, replaces, runs, main):
+    def step_entry(name, wrapper, source, replaces, runs, main, **more):
         """A ``kernels`` entry for a kernel of the step: the main path's
         input (``main``) for the times, every input's measurement under
         ``shapes``.  No one PyTorch call computes any of them."""
@@ -469,6 +521,7 @@ def main() -> None:
             "bound_by": runs[main]["bound_by"],
             "library_ms": None,
             **extra,
+            **more,
             "shapes": {
                 where: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bytes",
                                           "bound_ms_sectors", "max_abs_err") if k in r}
@@ -494,13 +547,16 @@ def main() -> None:
         },
         step_entry("ds_cumsum_rows", "ds_cumsum_axis1",
                    "protocol_tpu_torch/ops/csrc/ds_cumsum_rows.cu",
-                   "protocol_tpu/ops/sparse.py:80", k5, "plan_rows"),
+                   "protocol_tpu/ops/sparse.py:80", k5, "windowed_blocks"),
         step_entry("compensated_scan", "compensated_cumsum",
                    "protocol_tpu_torch/ops/csrc/compensated_scan.cu",
                    "protocol_tpu/ops/sparse.py:41", k6, "windowed_blocks"),
-        step_entry("bridge_partials", "bridge_partials",
-                   "protocol_tpu_torch/ops/csrc/bridge_partials.cu",
-                   "protocol_tpu/ops/gather_window.py:1007", k7, "headline"),
+        # K7 replaced K5's launch over the plan rows and a two-pass bridge
+        # kernel; the first is still measured above, on the same slots.
+        step_entry("prefix_bridge", "prefix_bridge",
+                   "protocol_tpu_torch/ops/csrc/prefix_bridge.cu",
+                   "protocol_tpu/ops/sparse.py:80 + protocol_tpu/ops/gather_window.py:1007",
+                   k7, "headline", earlier_ms={"ds_cumsum_rows_plan_rows": k5["plan_rows"]["ms"]}),
         step_entry("rowsum_tail", "rowsum_tail",
                    "protocol_tpu_torch/ops/csrc/rowsum_tail.cu",
                    "protocol_tpu/ops/sparse.py:94", k8, "windowed_blocks"),
@@ -510,7 +566,7 @@ def main() -> None:
     g_small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
     kw5 = dict(alpha=0.1, tol=1e-6, max_iter=60)
     step_wrappers = (
-        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.bridge_partials,
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.prefix_bridge,
         sp.rowsum_tail,
     )
     before = {w.__name__: w.launches for w in step_wrappers}
@@ -527,8 +583,8 @@ def main() -> None:
     it = on_card.iterations
     check(
         card_launches == dict(
-            gather_windowed=it, ds_cumsum_axis1=2 * it, compensated_cumsum=it,
-            bridge_partials=it, rowsum_tail=it,
+            gather_windowed=it, ds_cumsum_axis1=it, compensated_cumsum=it,
+            prefix_bridge=it, rowsum_tail=it,
         ),
         f"the card converge's {it} iterations launched {card_launches}",
     )

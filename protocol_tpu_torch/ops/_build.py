@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exports one C function of the same name.  At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/protocol_tpu_torch/`` at the repository root
 (listed in ``.gitignore``) and loaded with ``ctypes``.  The library's
-file name carries a digest of the source and the flags, so an edited
-source is rebuilt and never mistaken for a stale build.  Nothing here
+file name carries a digest of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt and
+never mistaken for a stale build.  Nothing here
 runs at import: the CPU test machines have no ``nvcc``.
 """
 
@@ -62,9 +63,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (hi, lo, seg_end, seg_first, seg_perm, partial, out, s, stream)
-    "bridge_partials": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p],
+    # (slots, seg_end, seg_first, seg_perm, row_run_ptr, partial, out, n_rows, s, stream)
+    "prefix_bridge": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (wh, wl, hi_in, lo_in, row_ptr, out, n_blocks, block, n, stream)
@@ -91,6 +92,8 @@ def _nvcc() -> str:
 def library_path(name: str) -> pathlib.Path:
     """Where ``name``'s shared library lives once built."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

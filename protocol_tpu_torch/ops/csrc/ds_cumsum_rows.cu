@@ -15,12 +15,9 @@
 // the reference's zero-filled shift does.
 //
 // Op order is the contract.  The prefix is bit-identical to the JAX package
-// on the CPU, so the kernel must equal the plain version bit for bit:
-//   - every add and subtract is __fadd_rn / __fsub_rn, in ds_add's order
-//     (e + al + bl is (e + al) + bl), so nothing is reassociated or
-//     contracted;
-//   - the source must never be built with --use_fast_math or -ftz=true:
-//     denormals survive on the CPU and must survive here.
+// on the CPU, so the kernel must equal the plain version bit for bit: the
+// scan and ds_add live in ds_scan.cuh, shared with prefix_bridge.cu (K7),
+// which says what that asks of the build.
 //
 // What bounds it.  Per element the card must read x (4 B) and write hi and lo
 // (8 B): 12 B a slot.  At the headline plan rows (52,416 x 1024, 53.7M
@@ -31,19 +28,12 @@
 // How the design meets it, right before fast.  One block per row, B/4
 // threads, each holding 4 consecutive elements in registers:
 //   - one coalesced 16-byte load of x per thread;
-//   - log2(B) levels through shared memory, double-buffered so one barrier
-//     a level suffices: a thread writes its (hi, lo) float4s into buffer
-//     L % 2, waits, reads the i-s values from the same buffer and updates its
-//     registers.  A buffer written at level L+1 was last read at level L-1,
-//     before every thread passed level L's barrier.  For s >= 4 the i-s values
-//     of a thread's 4 elements are one aligned float4 (thread t - s/4); for
-//     s < 4 they are the thread's own previous-level registers and the
-//     float4 of thread t-1;
+//   - log2(B) levels through double-buffered shared memory, one barrier a
+//     level (`ds_scan_row`);
 //   - one coalesced 16-byte store each of hi and lo.
 // Shared memory: 4 float4s a thread, 16 KB at B = 1024 and 32 KB at B = 2048.
 // Shared-memory traffic (~16 B an element a level), not device memory, likely
-// bounds this simple form.  A register/shuffle scan keeping the same op tree
-// is a later redesign; note that the i-s neighbour crosses warps at every
+// bounds this simple form.  Note that the i-s neighbour crosses warps at every
 // level from s = 4 on, so a warp-local scan does not reproduce Hillis-Steele.
 //
 // A ragged last row.  `x` holds n <= rows * cols elements; the kernel reads
@@ -59,19 +49,9 @@
 // launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for another width or n.
 
-#include <cuda_runtime.h>
+#include "ds_scan.cuh"
 
 namespace {
-
-__device__ __forceinline__ void ds_add(float& ah, float& al, float bh, float bl) {
-  const float s = __fadd_rn(ah, bh);
-  const float v = __fsub_rn(s, ah);
-  float e = __fadd_rn(__fsub_rn(ah, __fsub_rn(s, v)), __fsub_rn(bh, v));
-  e = __fadd_rn(__fadd_rn(e, al), bl);
-  const float hi = __fadd_rn(s, e);
-  al = __fsub_rn(e, __fsub_rn(hi, s));
-  ah = hi;
-}
 
 template <int B>
 __global__ void __launch_bounds__(B / 4)
@@ -92,38 +72,7 @@ ds_cumsum_rows_kernel(const float* __restrict__ x, float* __restrict__ hi_out,
     for (int k = 0; k < 4; ++k) h[k] = 4 * at + k < n ? x[4 * at + k] : 0.0f;
   }
   float l[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-
-  int buf = 0;
-#pragma unroll
-  for (int s = 1; s < B; s <<= 1) {
-    sh[buf][t] = make_float4(h[0], h[1], h[2], h[3]);
-    sl[buf][t] = make_float4(l[0], l[1], l[2], l[3]);
-    __syncthreads();
-    // bh[k], bl[k]: the previous level's value at 4t + k - s, or +0.0.
-    float bh[4], bl[4];
-    if (s >= 4) {
-      const int src = t - s / 4;
-      const float4 ph = src >= 0 ? sh[buf][src] : zero;
-      const float4 pl = src >= 0 ? sl[buf][src] : zero;
-      bh[0] = ph.x; bh[1] = ph.y; bh[2] = ph.z; bh[3] = ph.w;
-      bl[0] = pl.x; bl[1] = pl.y; bl[2] = pl.z; bl[3] = pl.w;
-    } else {
-      // Thread t-1's four elements, then this thread's own (previous level).
-      const float4 ph = t > 0 ? sh[buf][t - 1] : zero;
-      const float4 pl = t > 0 ? sl[buf][t - 1] : zero;
-      const float wh[8] = {ph.x, ph.y, ph.z, ph.w, h[0], h[1], h[2], h[3]};
-      const float wl[8] = {pl.x, pl.y, pl.z, pl.w, l[0], l[1], l[2], l[3]};
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        bh[k] = wh[4 + k - s];
-        bl[k] = wl[4 + k - s];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) ds_add(h[k], l[k], bh[k], bl[k]);
-    buf ^= 1;
-  }
+  ds_scan_row<B>(h, l, sh, sl);
   reinterpret_cast<float4*>(hi_out)[at] = make_float4(h[0], h[1], h[2], h[3]);
   reinterpret_cast<float4*>(lo_out)[at] = make_float4(l[0], l[1], l[2], l[3]);
 }

@@ -15,9 +15,9 @@
 //
 // and out[j] = (P(j+1).hi - P(j).hi) + (P(j+1).lo - P(j).lo) for j < n.
 //
-// Op order is the contract, as for the prefix kernels: every add and subtract is
-// __fadd_rn / __fsub_rn in ds_add's order (e + al + bl is (e + al) + bl), and the source
-// is never built with --use_fast_math or -ftz=true.
+// Op order is the contract, as for the prefix kernels: ds_add (ds_scan.cuh) adds and
+// subtracts with __fadd_rn / __fsub_rn in the reference's order, and the source is never
+// built with --use_fast_math or -ftz=true.
 //
 // What bounds it.  The function reads the n+1 pointers (4 B each) and, for each, one
 // element of both lanes (8 B), and writes n outputs (4 B): ~16 MB at n = 1M, ~0.005 ms at
@@ -36,21 +36,11 @@
 // with row_ptr int32 (n + 1 entries) and n_blocks >= 1; launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 
-#include <cuda_runtime.h>
+#include "ds_scan.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ void ds_add(float& ah, float& al, float bh, float bl) {
-  const float s = __fadd_rn(ah, bh);
-  const float v = __fsub_rn(s, ah);
-  float e = __fadd_rn(__fsub_rn(ah, __fsub_rn(s, v)), __fsub_rn(bh, v));
-  e = __fadd_rn(__fadd_rn(e, al), bl);
-  const float hi = __fadd_rn(s, e);
-  al = __fsub_rn(e, __fsub_rn(hi, s));
-  ah = hi;
-}
 
 // The inclusive double-single prefix before pointer value `ptr`.
 __device__ __forceinline__ float2 prefix_at(const float* __restrict__ wh,

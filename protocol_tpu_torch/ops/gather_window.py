@@ -12,18 +12,18 @@ The device side runs one damped power step per iteration:
    bucket order — the hand-written CUDA kernel
    ``csrc/gather_window.cu`` on a card, its plain PyTorch version on
    the CPU;
-2. the row-local double-single prefix over the (n_rows, 1024) slots
-   (``ops.sparse.ds_cumsum_axis1``: the CUDA kernel
-   ``csrc/ds_cumsum_rows.cu`` on a card);
-3. ``bridge_partials``: run partials at the bucket-order run ends, one
-   ``n_segments`` permutation into dst order (the CUDA kernel
-   ``csrc/bridge_partials.cu`` on a card);
-4. ``rowsum_sorted`` over the dst-delimited partials → dense Cᵀt (its
+2. ``prefix_bridge``: the row-local double-single prefix over the
+   (n_rows, 1024) slots, the run partials at the bucket-order run ends
+   and one ``n_segments`` permutation into dst order — two jit'd XLA
+   passes of the reference (``_ds_cumsum_axis1``, ``bridge_partials``)
+   as one CUDA kernel, ``csrc/prefix_bridge.cu``, on a card, which keeps
+   the prefix on chip;
+3. ``rowsum_sorted`` over the dst-delimited partials → dense Cᵀt (its
    passes on the CUDA kernels ``ds_cumsum_rows.cu``,
    ``compensated_scan.cu`` and ``rowsum_tail.cu``);
-5. the shared damping epilogue, plain PyTorch.
+4. the shared damping epilogue, plain PyTorch.
 
-Steps 2-5 are jit'd XLA in the reference, not Pallas.  Everything up to
+Steps 2-4 are jit'd XLA in the reference, not Pallas.  Everything up to
 Cᵀt is bit-identical to the reference.
 """
 
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .sparse import damp, ds_cumsum_axis1, rowsum_sorted, run_power_iteration
+from .sparse import _ds_cumsum_axis1, damp, rowsum_sorted, run_power_iteration
 
 try:
     # The C two-pass kernel underneath scipy's COO→CSR conversion; the
@@ -1020,8 +1020,10 @@ def bridge_partials_plain(
     seg_first: torch.Tensor,
     seg_perm: torch.Tensor,
 ) -> torch.Tensor:
-    """The plain PyTorch version of ``bridge_partials``.  Used for CPU
-    tensors, and on the card only to check the kernel."""
+    """The reference's ``bridge_partials`` in plain PyTorch: run
+    partials from the flattened row-prefix lanes at the bucket-order run
+    ends, permuted into dst order.  The second half of
+    ``prefix_bridge_plain``."""
     eh = hi.index_select(0, seg_end)
     el = lo.index_select(0, seg_end)
     zero = eh.new_zeros(1)
@@ -1033,66 +1035,112 @@ def bridge_partials_plain(
     return partial.index_select(0, seg_perm)
 
 
-def _check_bridge_operands(hi, lo, seg_end, seg_first, seg_perm) -> None:
-    for name, a, dtype in (
-        ("hi", hi, torch.float32),
-        ("lo", lo, torch.float32),
-        ("seg_end", seg_end, torch.int32),
-        ("seg_first", seg_first, torch.bool),
-        ("seg_perm", seg_perm, torch.int32),
-    ):
-        if a.dim() != 1:
-            raise ValueError(f"bridge_partials: {name} must be 1-D, got shape {tuple(a.shape)}")
-        if a.dtype != dtype:
-            raise TypeError(f"bridge_partials: {name} must be {dtype}, got {a.dtype}")
-    if lo.shape != hi.shape:
-        raise ValueError(f"bridge_partials: lo has {lo.shape[0]} slots, hi {hi.shape[0]}")
-    for name, a in (("seg_first", seg_first), ("seg_perm", seg_perm)):
-        if a.shape != seg_end.shape:
-            raise ValueError(
-                f"bridge_partials: {name} has {a.shape[0]} runs, seg_end {seg_end.shape[0]}"
-            )
-
-
-def bridge_partials(
-    hi: torch.Tensor,
-    lo: torch.Tensor,
+def prefix_bridge_plain(
+    slots: torch.Tensor,
     seg_end: torch.Tensor,
     seg_first: torch.Tensor,
     seg_perm: torch.Tensor,
 ) -> torch.Tensor:
-    """Reduce the flattened row-local (hi, lo) prefix lanes to
-    dst-sorted per-(row, dst) run partials: a read of both lanes at the
-    bucket-order run ends (strictly increasing — it streams), the
-    previous run's end as each run's start prefix (an exact zero where
-    the run leads its row), and the one ``seg_perm`` permutation into
-    dst order.  ``hi``/``lo`` are float32, ``seg_end``/``seg_perm``
-    int32 and ``seg_first`` bool, the three run tables of one length.
+    """The plain PyTorch version of ``prefix_bridge``: the reference's
+    row prefix ``_ds_cumsum_axis1`` over the (n_rows, 1024) slots, then
+    ``bridge_partials_plain`` on the flattened lanes.  Used for CPU
+    tensors, and on the card only to check the kernel."""
+    hi, lo = _ds_cumsum_axis1(slots)
+    return bridge_partials_plain(hi.reshape(-1), lo.reshape(-1), seg_end, seg_first, seg_perm)
 
-    On CUDA tensors this launches ``csrc/bridge_partials.cu`` (the run
-    partials in bucket order, then the permutation) and adds one to
-    ``bridge_partials.launches``; a launch the card refuses raises.  On
-    CPU tensors it is the plain version.  Mixed or other devices
-    raise."""
-    _check_bridge_operands(hi, lo, seg_end, seg_first, seg_perm)
+
+def row_run_ptr(seg_end: torch.Tensor, seg_first: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """``(n_rows + 1,)`` int32: ``row_run_ptr[r]`` is the first
+    bucket-order run that ends in plan row ``r`` (the runs of row ``r``
+    are ``row_run_ptr[r] : row_run_ptr[r + 1]``), on ``seg_end``'s device.
+
+    Checks what ``prefix_bridge``'s kernel takes for granted and raises
+    ``ValueError`` otherwise: every run ends inside the plan's
+    ``n_rows * 1024`` slots, and every row's first run is run 0 or is
+    flagged in ``seg_first`` (its start prefix is then an exact zero, so
+    no row reads another's prefix).  Every plan meets both by
+    construction.  The checks read three values on the host, so a
+    converge calls this once, before its loop."""
+    bounds = torch.arange(n_rows + 1, dtype=torch.int64, device=seg_end.device) * ROW
+    ptr = torch.searchsorted(seg_end, bounds, out_int32=True)
+    if int(ptr[0]) != 0 or int(ptr[-1]) != seg_end.shape[0]:
+        raise ValueError(f"run ends lie outside the plan's {n_rows} rows of {ROW} slots")
+    lead = ptr[:-1][ptr[:-1] < ptr[1:]]
+    if not bool((seg_first[lead] | (lead == 0)).all()):
+        raise ValueError("a row's first run is neither run 0 nor flagged in seg_first")
+    return ptr
+
+
+def _check_prefix_bridge_operands(slots, seg_end, seg_first, seg_perm, run_ptr) -> None:
+    for name, a, dim, dtype in (
+        ("slots", slots, 2, torch.float32),
+        ("seg_end", seg_end, 1, torch.int32),
+        ("seg_first", seg_first, 1, torch.bool),
+        ("seg_perm", seg_perm, 1, torch.int32),
+        ("row_run_ptr", run_ptr, 1, torch.int32),
+    ):
+        if a.dim() != dim:
+            raise ValueError(f"prefix_bridge: {name} must be {dim}-D, got shape {tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise TypeError(f"prefix_bridge: {name} must be {dtype}, got {a.dtype}")
+    if slots.shape[1] != ROW:
+        raise ValueError(f"prefix_bridge: slots must be {ROW} wide, got {slots.shape[1]}")
+    for name, a in (("seg_first", seg_first), ("seg_perm", seg_perm)):
+        if a.shape != seg_end.shape:
+            raise ValueError(
+                f"prefix_bridge: {name} has {a.shape[0]} runs, seg_end {seg_end.shape[0]}"
+            )
+    if run_ptr.shape[0] != slots.shape[0] + 1:
+        raise ValueError(
+            f"prefix_bridge: row_run_ptr must hold {slots.shape[0] + 1} pointers, "
+            f"got {run_ptr.shape[0]}"
+        )
+
+
+def prefix_bridge(
+    slots: torch.Tensor,
+    seg_end: torch.Tensor,
+    seg_first: torch.Tensor,
+    seg_perm: torch.Tensor,
+    run_ptr: torch.Tensor,
+) -> torch.Tensor:
+    """The gathered ``(n_rows, 1024)`` float32 plan slots reduced to
+    dst-sorted per-(row, dst) run partials: each row's double-single
+    prefix, the run partials at the bucket-order run ends (the previous
+    run's end as each run's start prefix, an exact zero where the run
+    is flagged in ``seg_first``), and the one ``seg_perm`` permutation
+    into dst order.  ``seg_end``/``seg_perm`` are int32 and ``seg_first``
+    bool, of one length; ``run_ptr`` is ``row_run_ptr(seg_end,
+    seg_first, n_rows)``.  The kernel clamps every index it reads from
+    these tables into range, so a stale ``run_ptr`` (another plan's)
+    gives wrong partials, never an out-of-bounds access.
+
+    On CUDA tensors this launches ``csrc/prefix_bridge.cu`` (each row's
+    prefix kept on chip and read at its run ends, then the permutation)
+    and adds one to ``prefix_bridge.launches``; a launch the card
+    refuses raises.  On CPU tensors it is the plain version.  Mixed or
+    other devices raise."""
+    _check_prefix_bridge_operands(slots, seg_end, seg_first, seg_perm, run_ptr)
     device = _build.operand_device(
-        "bridge_partials", hi=hi, lo=lo, seg_end=seg_end, seg_first=seg_first, seg_perm=seg_perm
+        "prefix_bridge", slots=slots, seg_end=seg_end, seg_first=seg_first,
+        seg_perm=seg_perm, row_run_ptr=run_ptr,
     )
     if device.type == "cpu":
-        return bridge_partials_plain(hi, lo, seg_end, seg_first, seg_perm)
+        return prefix_bridge_plain(slots, seg_end, seg_first, seg_perm)
     s = seg_end.shape[0]
-    partial, out = hi.new_empty(s), hi.new_empty(s)
+    partial, out = slots.new_empty(s), slots.new_empty(s)
     if s:
         _build.launch(
-            "bridge_partials", device, hi.data_ptr(), lo.data_ptr(), seg_end.data_ptr(),
-            seg_first.data_ptr(), seg_perm.data_ptr(), partial.data_ptr(), out.data_ptr(), s,
+            "prefix_bridge", device, slots.data_ptr(), seg_end.data_ptr(), seg_first.data_ptr(),
+            seg_perm.data_ptr(), run_ptr.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            slots.shape[0], s,
         )
-        bridge_partials.launches += 1
+        prefix_bridge.launches += 1
     return out
 
 
 #: Kernel launches in this process (the plain version does not count).
-bridge_partials.launches = 0  # type: ignore[attr-defined]
+prefix_bridge.launches = 0  # type: ignore[attr-defined]
 
 
 def windowed_ct(
@@ -1107,15 +1155,16 @@ def windowed_ct(
     *,
     n_rows: int,
     table_entries: int,
+    run_ptr: torch.Tensor,
 ) -> torch.Tensor:
     """Dense Cᵀt over the plan's slot set — the fused pipeline minus
-    damping: windowed gather, row-local double-single prefix, bridge,
-    row sums."""
+    damping: windowed gather, row prefix and bridge, row sums.
+    ``run_ptr`` is ``row_run_ptr(seg_end, seg_first, n_rows)``, derived
+    once a plan (it syncs with the host)."""
     n = t.shape[0]
     table = torch.nn.functional.pad(t, (0, table_entries - n))
     out = gather_windowed(wid, table, local, weight, n_rows=n_rows)
-    hi, lo = ds_cumsum_axis1(out.reshape(n_rows, ROW))
-    partial = bridge_partials(hi.reshape(-1), lo.reshape(-1), seg_end, seg_first, seg_perm)
+    partial = prefix_bridge(out.reshape(n_rows, ROW), seg_end, seg_first, seg_perm, run_ptr)
     return rowsum_sorted(partial, dst_ptr)
 
 
@@ -1134,12 +1183,13 @@ def power_step_windowed(
     *,
     n_rows: int,
     table_entries: int,
+    run_ptr: torch.Tensor,
 ) -> torch.Tensor:
     """One damped step of the fused pipeline: ``windowed_ct`` then the
     shared damping + dangling redistribution + L1 renorm."""
     ct = windowed_ct(
         wid, local, weight, seg_end, seg_first, seg_perm, dst_ptr, t,
-        n_rows=n_rows, table_entries=table_entries,
+        n_rows=n_rows, table_entries=table_entries, run_ptr=run_ptr,
     )
     return damp(ct, t, p, dangling, alpha)
 
@@ -1167,12 +1217,14 @@ def converge_windowed(
     ``run_power_iteration`` loop: returns ``(t, iterations, residual)``
     plus the device residual history with ``record_residuals``.  The
     plan tensors come from ``WindowPlan.device_args``; ``t0`` is not
-    written to."""
+    written to.  The rows' run pointers are derived once, before the
+    loop, so a ``tol <= 0`` loop makes no host sync."""
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=t0.device)
+    run_ptr = row_run_ptr(seg_end, seg_first, n_rows)
     return run_power_iteration(
         lambda t: power_step_windowed(
             wid, local, weight, seg_end, seg_first, seg_perm, dst_ptr, t, p,
-            dangling, alpha, n_rows=n_rows, table_entries=table_entries,
+            dangling, alpha, n_rows=n_rows, table_entries=table_entries, run_ptr=run_ptr,
         ),
         t0,
         tol=tol,

@@ -1,29 +1,35 @@
-"""The windowed step's bridge and ``rowsum_sorted``'s pointer tail, and
-their CUDA kernels.
+"""The windowed step's row prefix and bridge, ``rowsum_sorted``'s pointer
+tail, and their CUDA kernels.
 
-``bridge_partials`` (kernel ``csrc/bridge_partials.cu``) replaces the
-reference's jit'd ``bridge_partials`` (``protocol_tpu/ops/gather_window.py``)
-and ``rowsum_tail`` (kernel ``csrc/rowsum_tail.cu``) the tail of its
-``rowsum_sorted`` (``protocol_tpu/ops/sparse.py``).  Both are
-bit-identical to the JAX package, so the kernels must equal their plain
-versions bit for bit, signed zeros included.  ``ds_cumsum_axis1`` also
-takes ``rowsum_sorted``'s contributions unpadded now (its kernel reads
-the padding as +0.0).
+``prefix_bridge`` (kernel ``csrc/prefix_bridge.cu``) replaces two jit'd
+passes of the reference, the row prefix ``_ds_cumsum_axis1``
+(``protocol_tpu/ops/sparse.py``) and ``bridge_partials``
+(``protocol_tpu/ops/gather_window.py``), as ``windowed_ct`` composes
+them; ``rowsum_tail`` (kernel ``csrc/rowsum_tail.cu``) replaces the tail
+of its ``rowsum_sorted``.  Both are bit-identical to the JAX package, so
+the kernels must equal their plain versions bit for bit, signed zeros
+included.  ``ds_cumsum_axis1`` also takes ``rowsum_sorted``'s
+contributions unpadded (its kernel reads the padding as +0.0).
 
 The kernels run only on a card, where ``chip_smoke.py`` holds them
 against their plain versions.  Here:
 
 - each kernel's schedule is written out as a numpy float32 emulation
-  (K7: one thread a run, the previous run's end from the neighbouring
-  lane or, in lane 0, read again; K8: one thread a pointer, the C
-  integer division and the ``blk - 1`` exclusive prefix, the next
-  pointer's prefix from the next lane or, in lane 31, computed again)
-  and held bit-equal to the plain version, denormal lanes included;
+  (K7: the row prefix by K5's schedule, the run epilogue from the row's
+  prefix and the four-wide permutation with its scalar tail, with the
+  kernel's index clamps; K8: one thread a pointer, the C integer
+  division and the ``blk - 1`` exclusive prefix, the next pointer's
+  prefix from the next lane or, in lane 31, computed again) and held
+  bit-equal to the plain version, denormal rows included; broken
+  pointer tables stay in bounds with the clamps and go out of bounds
+  without them;
 - the plain versions are held bit-equal to JAX on real plans and on
-  adversarial lanes, tables and pointers (signed zeros, exact
-  cancellations, a leading run not flagged, every run flagged, one run,
-  odd lengths, empty rows); denormal lanes are held against the plain
-  versions only, since XLA's CPU backend flushes denormals;
+  adversarial rows, tables and pointers (signed zeros, exact
+  cancellations, rows without runs, 1024 singleton runs in a row, pad
+  runs, every run flagged, run counts not a multiple of 4, a leading
+  run not flagged, odd lengths, empty rows); denormals are held against
+  the plain versions only, since XLA's CPU backend flushes them;
+- ``row_run_ptr`` against ``np.searchsorted`` and its precondition;
 - the wrappers' CPU route, launch counters and argument checks;
 - the step's passes go through the wrappers, once each.
 
@@ -43,13 +49,24 @@ from protocol_tpu.ops import gather_window as jgw
 from protocol_tpu.ops import sparse as jsp
 from protocol_tpu_torch.ops import gather_window as tgw
 from protocol_tpu_torch.ops import sparse as tsp
+from test_torch_prefix import emulate_ds_cumsum_rows
 
 j_bridge = jax.jit(jgw.bridge_partials)
 j_rowsum = jax.jit(jsp.rowsum_sorted)
 
+
+@jax.jit
+def j_prefix_bridge(slots, seg_end, seg_first, seg_perm):
+    """The reference's composition in ``windowed_ct``: the row prefix,
+    then the bridge on the flattened lanes."""
+    hi, lo = jsp._ds_cumsum_axis1(slots)
+    return jgw.bridge_partials(hi.reshape(-1), lo.reshape(-1), seg_end, seg_first, seg_perm)
+
+
 F32 = np.float32
 B = tsp._ROWSUM_BLOCK
 WARP = 32
+ROW = tgw.ROW
 
 
 def t(a):
@@ -81,25 +98,46 @@ def np_ds_add(ah, al, bh, bl):
     return hi, e - (hi - s)
 
 
-def emulate_bridge(hi, lo, seg_end, seg_first, seg_perm):
-    """``bridge_partials.cu`` as it runs: thread s reads its run end's
-    lanes; the previous run's end comes from lane s-1 of the same warp
-    by the shuffle, except in lane 0, which reads ``seg_end[s-1]`` and
-    its lanes itself; +0.0 where s == 0 or the run is flagged.  Then the
-    permutation gather out of the ``partial`` scratch."""
-    s = np.arange(seg_end.shape[0])
-    eh, el = hi[seg_end], lo[seg_end]
-    lane = s % WARP
-    ph, pl = np.empty_like(eh), np.empty_like(el)
-    ph[1:], pl[1:] = eh[:-1], el[:-1]  # the shuffle, for lanes 1..31
-    lead = lane == 0
-    ph[lead], pl[lead] = eh[lead], el[lead]  # what the shuffle leaves lane 0
-    lead &= s > 0
-    ph[lead], pl[lead] = hi[seg_end[s[lead] - 1]], lo[seg_end[s[lead] - 1]]
-    zero = (s == 0) | seg_first
-    ph[zero], pl[zero] = F32(0.0), F32(0.0)
-    partial = (eh - ph) + (el - pl)
-    return partial[seg_perm]
+def emulate_prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr, clamp=True):
+    """``prefix_bridge.cu`` as it runs.  Launch 1, block r: the row's
+    prefix by K5's schedule (``ds_scan_row`` of ``ds_scan.cuh``, which
+    ``ds_cumsum_rows.cu`` runs too), then the runs ``run_ptr[r] :
+    run_ptr[r + 1]`` (both clamped into [0, S]; none where they cross),
+    each run's end and its predecessor's masked into the row and read
+    from the row's final prefix.  Launch 2: the permutation, four outputs
+    a thread and a scalar tail, each index clamped into [0, S) as an
+    unsigned ``min``.  Every table read is checked in bounds (numpy would
+    wrap a negative index); ``clamp=False`` drops both clamps."""
+    n_runs = seg_end.shape[0]
+    fh, fl = emulate_ds_cumsum_rows(np.asarray(slots, F32))
+
+    def read(a, i):
+        assert i.size == 0 or (i.min() >= 0 and i.max() < a.shape[0]), "out of bounds"
+        return a[i]
+
+    partial = np.full(n_runs, np.nan, F32)  # the scratch
+    for r in range(slots.shape[0]):
+        first, end = int(run_ptr[r]), int(run_ptr[r + 1])
+        if clamp:
+            first, end = min(max(first, 0), n_runs), min(max(end, 0), n_runs)
+        s = np.arange(first, end)
+        e = read(seg_end, s) & (ROW - 1)
+        ph, pl = np.zeros(s.size, F32), np.zeros(s.size, F32)
+        take = (s != 0) & ~read(seg_first, s)
+        prev = read(seg_end, s[take] - 1) & (ROW - 1)
+        ph[take], pl[take] = fh[r, prev], fl[r, prev]
+        read(partial, s)
+        partial[s] = (fh[r, e] - ph) + (fl[r, e] - pl)
+
+    idx = seg_perm.astype(np.int64)
+    if clamp:
+        idx = np.minimum(idx & 0xFFFFFFFF, n_runs - 1)
+    out = np.empty(n_runs, F32)
+    vec = n_runs // 4 * 4
+    out[:vec] = read(partial, idx[:vec].reshape(-1, 4)).reshape(-1)
+    for j in range(vec, n_runs):
+        out[j] = read(partial, idx[j : j + 1])[0]
+    return out
 
 
 def emulate_rowsum_tail(wh, wl, hi_in, lo_in, row_ptr):
@@ -182,6 +220,72 @@ def synthetic_tables(slots: int, runs: int, seed: int, flags: str = "random"):
     return seg_end, seg_first, seg_perm
 
 
+#: Run layouts over the rows of ``run_tables``.
+LAYOUTS = ["random", "singletons", "all_flagged", "sparse", "pad_tail"]
+#: Plan rows of the synthetic tables.
+ROWS = 6
+
+
+def run_tables(layout: str, seed: int = 0, rows: int = ROWS):
+    """Run tables over ``rows`` plan rows that meet ``prefix_bridge``'s
+    precondition (every row's first run flagged): ``random`` (0-40 runs
+    a row, some rows without runs, 10 % of the other runs flagged),
+    ``singletons`` (row 1 all 1024 slots singleton runs), ``all_flagged``
+    (every run flagged), ``sparse`` (one run ending at slot 1023 in row
+    1, one ending at slot 0 in row 4, every other row empty) or
+    ``pad_tail`` (random data rows, then flagged singleton pad runs at
+    the topmost slots across the last row boundary, their count making
+    S % 4 == 3, as ``_pad_segment_tables`` lays them).  Returns
+    ``(seg_end, seg_first, seg_perm)`` with a random ``seg_perm``."""
+    rng = np.random.default_rng(seed)
+    ends, firsts = [], []
+    for r in range(rows):
+        if layout == "sparse":
+            local = {1: [1023], 4: [0]}.get(r, [])
+        elif layout == "singletons" and r == 1:
+            local = list(range(ROW))
+        elif layout == "pad_tail" and r >= rows - 2:
+            local = []
+        else:
+            count = 0 if r % 3 == 2 else int(rng.integers(1, 41))
+            local = sorted(rng.choice(ROW, count, replace=False).tolist())
+        first = rng.random(len(local)) < 0.1
+        if local:
+            first[0] = True
+        ends += [r * ROW + e for e in local]
+        firsts += first.tolist()
+    seg_end = np.asarray(ends, np.int64)
+    seg_first = np.asarray(firsts, bool)
+    if layout == "all_flagged":
+        seg_first[:] = True
+    if layout == "pad_tail":
+        pad = 1029 + (3 - seg_end.shape[0] - 1029) % 4
+        total = rows * ROW
+        seg_end = np.concatenate([seg_end, np.arange(total - pad, total)])
+        seg_first = np.concatenate([seg_first, np.ones(pad, bool)])
+    seg_perm = rng.permutation(seg_end.shape[0]).astype(np.int32)
+    return seg_end.astype(np.int32), seg_first, seg_perm
+
+
+def np_run_ptr(seg_end: np.ndarray, rows: int) -> np.ndarray:
+    return np.searchsorted(seg_end, np.arange(rows + 1) * ROW).astype(np.int32)
+
+
+def bridge_case(kind: str, layout: str):
+    """Adversarial slots of ``kind`` over the ``layout`` run tables:
+    ``(slots, seg_end, seg_first, seg_perm, run_ptr)`` in numpy."""
+    tables = run_tables(layout, seed=LAYOUTS.index(layout))
+    slots = adversarial_values(ROWS * ROW, kind, seed=len(kind)).reshape(ROWS, ROW)
+    return (slots, *tables, np_run_ptr(tables[0], ROWS))
+
+
+def plan_slots(plan, seed: int) -> np.ndarray:
+    """Random slot values over a real plan's rows (the zero-weight
+    padding included, as the gather leaves it)."""
+    rng = np.random.default_rng(seed)
+    return (rng.random((plan.n_rows, ROW)) * plan.weight.reshape(plan.n_rows, ROW)).astype(F32)
+
+
 @pytest.fixture(scope="module")
 def plan():
     """A real plan over three windows with a partial last one."""
@@ -224,24 +328,47 @@ def plain_blocks(contrib: np.ndarray):
 
 
 class TestKernelSchedules:
+    @pytest.mark.parametrize("layout", LAYOUTS)
     @pytest.mark.parametrize("kind", LANE_KINDS + ["denormal"])
-    @pytest.mark.parametrize("runs, flags", [(1, "random"), (33, "all"), (1031, "lead_unset"),
-                                             (4099, "random")])
-    def test_bridge_schedule(self, kind, runs, flags):
-        slots = 4 * runs + 7
-        hi = adversarial_values(slots, kind, seed=runs)
-        lo = adversarial_values(slots, kind, seed=runs + 1) * F32(1e-8)
-        tables = synthetic_tables(slots, runs, seed=runs, flags=flags)
-        port = tgw.bridge_partials_plain(t(hi), t(lo), *map(t, tables))
-        assert_bits_equal(emulate_bridge(hi, lo, *tables), port)
+    def test_prefix_bridge_schedule(self, kind, layout):
+        slots, seg_end, seg_first, seg_perm, run_ptr = bridge_case(kind, layout)
+        port = tgw.prefix_bridge_plain(*map(t, (slots, seg_end, seg_first, seg_perm)))
+        assert_bits_equal(emulate_prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr), port)
 
-    def test_bridge_schedule_on_a_real_plan(self, plan):
-        rng = np.random.default_rng(1)
-        hi = rng.random(plan.n_rows * 1024).astype(F32)
-        lo = (rng.standard_normal(plan.n_rows * 1024) * 1e-8).astype(F32)
+    def test_prefix_bridge_schedule_on_a_real_plan(self, plan):
+        slots = plan_slots(plan, seed=1)
         tables = (plan.seg_end, plan.seg_first, plan.seg_perm)
-        port = tgw.bridge_partials_plain(t(hi), t(lo), *map(t, tables))
-        assert_bits_equal(emulate_bridge(hi, lo, *tables), port)
+        assert plan.seg_capacity > plan.n_segments  # pad runs
+        port = tgw.prefix_bridge_plain(*map(t, (slots, *tables)))
+        run_ptr = np_run_ptr(plan.seg_end, plan.n_rows)
+        assert_bits_equal(emulate_prefix_bridge(slots, *tables, run_ptr), port)
+
+    @pytest.mark.parametrize("clamp", [True, False])
+    @pytest.mark.parametrize("bad", ["past_end", "negative", "other_plan", "seg_perm"])
+    def test_prefix_bridge_schedule_stays_in_bounds(self, bad, clamp):
+        """Pointer tables that break the precondition (a stale row
+        pointer table, another plan's, a permutation entry out of range)
+        give wrong partials but no out-of-bounds access, and without the
+        kernel's clamps each of them would read out of bounds."""
+        slots, seg_end, seg_first, seg_perm, run_ptr = bridge_case("random", "random")
+        n_runs = seg_end.shape[0]
+        if bad == "past_end":
+            run_ptr = run_ptr + n_runs
+        elif bad == "negative":
+            run_ptr = run_ptr - n_runs
+        elif bad == "other_plan":
+            other = run_tables("singletons", seed=1)[0]
+            run_ptr = np_run_ptr(other, ROWS)
+            assert run_ptr[-1] > n_runs
+        else:
+            seg_perm = seg_perm.copy()
+            seg_perm[[0, -1]] = [-1, n_runs + 5]
+        if clamp:
+            out = emulate_prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr)
+            assert out.shape == (n_runs,)
+        else:
+            with pytest.raises(AssertionError, match="out of bounds"):
+                emulate_prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr, clamp=False)
 
     @pytest.mark.parametrize("kind", LANE_KINDS + ["denormal"])
     @pytest.mark.parametrize("e, n, ptrs", [(1, 1, "random"), (2048, 5, "block_edges"),
@@ -285,7 +412,17 @@ class TestAgainstJax:
         hi = adversarial_values(slots, kind, seed=runs)
         lo = adversarial_values(slots, kind, seed=runs + 1) * F32(1e-8)
         args = (hi, lo, *synthetic_tables(slots, runs, seed=runs, flags=flags))
-        assert_bits_equal(tgw.bridge_partials(*map(t, args)), j_bridge(*args))
+        assert_bits_equal(tgw.bridge_partials_plain(*map(t, args)), j_bridge(*args))
+
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    @pytest.mark.parametrize("kind", LANE_KINDS)
+    def test_prefix_bridge_adversarial(self, kind, layout):
+        args = bridge_case(kind, layout)[:4]
+        assert_bits_equal(tgw.prefix_bridge_plain(*map(t, args)), j_prefix_bridge(*args))
+
+    def test_prefix_bridge_on_a_real_plan(self, plan):
+        args = (plan_slots(plan, seed=3), plan.seg_end, plan.seg_first, plan.seg_perm)
+        assert_bits_equal(tgw.prefix_bridge_plain(*map(t, args)), j_prefix_bridge(*args))
 
     @pytest.mark.parametrize("kind", LANE_KINDS)
     @pytest.mark.parametrize("e, n, ptrs", [(1, 1, "random"), (2048, 5, "block_edges"),
@@ -305,12 +442,43 @@ class TestAgainstJax:
 # ---------------------------------------------------------------------------
 
 
-def bridge_operands(runs: int = 40, slots: int = 200) -> dict:
-    rng = np.random.default_rng(runs)
-    seg_end, seg_first, seg_perm = synthetic_tables(slots, runs, seed=runs)
+class TestRowRunPtr:
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    def test_matches_searchsorted(self, layout):
+        seg_end, seg_first, _ = run_tables(layout, seed=LAYOUTS.index(layout))
+        ptr = tgw.row_run_ptr(t(seg_end), t(seg_first), ROWS)
+        assert ptr.dtype == torch.int32
+        np.testing.assert_array_equal(ptr.numpy(), np_run_ptr(seg_end, ROWS))
+
+    def test_matches_searchsorted_on_a_real_plan(self, plan):
+        ptr = tgw.row_run_ptr(t(plan.seg_end), t(plan.seg_first), plan.n_rows)
+        np.testing.assert_array_equal(ptr.numpy(), np_run_ptr(plan.seg_end, plan.n_rows))
+
+    def test_raises_on_an_unflagged_row_lead(self):
+        seg_end, seg_first, _ = run_tables("random")
+        row_lead = np_run_ptr(seg_end, ROWS)[1]  # row 1's first run, not run 0
+        seg_first[row_lead] = False
+        with pytest.raises(ValueError, match="flagged"):
+            tgw.row_run_ptr(t(seg_end), t(seg_first), ROWS)
+
+    def test_run_0_needs_no_flag(self):
+        seg_end, seg_first, _ = run_tables("random")
+        seg_first[0] = False
+        ptr = tgw.row_run_ptr(t(seg_end), t(seg_first), ROWS)
+        np.testing.assert_array_equal(ptr.numpy(), np_run_ptr(seg_end, ROWS))
+
+    @pytest.mark.parametrize("rows", [ROWS - 1, 0])
+    def test_raises_on_runs_past_the_rows(self, rows):
+        seg_end, seg_first, _ = run_tables("pad_tail")
+        with pytest.raises(ValueError, match="outside"):
+            tgw.row_run_ptr(t(seg_end), t(seg_first), rows)
+
+
+def bridge_operands(layout: str = "random") -> dict:
+    slots, seg_end, seg_first, seg_perm, run_ptr = bridge_case("random", layout)
     return dict(
-        hi=t(rng.random(slots).astype(F32)), lo=t(rng.random(slots).astype(F32) * F32(1e-8)),
-        seg_end=t(seg_end), seg_first=t(seg_first), seg_perm=t(seg_perm),
+        slots=t(slots), seg_end=t(seg_end), seg_first=t(seg_first), seg_perm=t(seg_perm),
+        run_ptr=t(run_ptr),
     )
 
 
@@ -320,11 +488,12 @@ def tail_operands(e: int = 5000, n: int = 300) -> dict:
 
 
 class TestWrappers:
-    def test_bridge_takes_plain_route_on_cpu_without_counting(self):
+    def test_prefix_bridge_takes_plain_route_on_cpu_without_counting(self):
         a = bridge_operands()
-        out = tgw.bridge_partials(**a)
-        assert tgw.bridge_partials.launches == 0
-        assert_bits_equal(out, tgw.bridge_partials_plain(**a))
+        out = tgw.prefix_bridge(**a)
+        assert tgw.prefix_bridge.launches == 0
+        plain = {k: v for k, v in a.items() if k != "run_ptr"}
+        assert_bits_equal(out, tgw.prefix_bridge_plain(**plain))
 
     def test_rowsum_tail_takes_plain_route_on_cpu_without_counting(self):
         a = tail_operands()
@@ -335,23 +504,28 @@ class TestWrappers:
     @pytest.mark.parametrize(
         "mutate, exc",
         [
-            (lambda a: dict(a, hi=a["hi"].double()), TypeError),
+            (lambda a: dict(a, slots=a["slots"].double()), TypeError),
             (lambda a: dict(a, seg_end=a["seg_end"].long()), TypeError),
             (lambda a: dict(a, seg_first=a["seg_first"].float()), TypeError),
             (lambda a: dict(a, seg_perm=a["seg_perm"].long()), TypeError),
-            (lambda a: dict(a, lo=a["lo"][:-1]), ValueError),
+            (lambda a: dict(a, run_ptr=a["run_ptr"].long()), TypeError),
+            (lambda a: dict(a, slots=a["slots"].reshape(-1, 512)), ValueError),
+            (lambda a: dict(a, slots=a["slots"].reshape(-1)), ValueError),
             (lambda a: dict(a, seg_perm=a["seg_perm"][:-1]), ValueError),
             (lambda a: dict(a, seg_first=a["seg_first"][:-1]), ValueError),
-            (lambda a: dict(a, hi=a["hi"].reshape(2, -1)), ValueError),
+            (lambda a: dict(a, run_ptr=a["run_ptr"][:-1]), ValueError),
+            (lambda a: dict(a, seg_end=a["seg_end"].reshape(1, -1)), ValueError),
             (lambda a: dict(a, seg_end=a["seg_end"].to("meta")), ValueError),
             (lambda a: {k: v.to("meta") for k, v in a.items()}, ValueError),
         ],
-        ids=["hi-dtype", "seg_end-int64", "seg_first-float", "seg_perm-int64", "lo-length",
-             "seg_perm-length", "seg_first-length", "hi-rank", "mixed-device", "meta-device"],
+        ids=["slots-dtype", "seg_end-int64", "seg_first-float", "seg_perm-int64",
+             "run_ptr-int64", "slots-512-wide", "slots-rank", "seg_perm-length",
+             "seg_first-length", "run_ptr-length", "seg_end-rank", "mixed-device",
+             "meta-device"],
     )
-    def test_bridge_rejects_bad_operands(self, mutate, exc):
+    def test_prefix_bridge_rejects_bad_operands(self, mutate, exc):
         with pytest.raises(exc):
-            tgw.bridge_partials(**mutate(bridge_operands()))
+            tgw.prefix_bridge(**mutate(bridge_operands()))
 
     @pytest.mark.parametrize(
         "mutate, exc",
@@ -376,7 +550,7 @@ class TestWrappers:
     def test_meta_tensors_raise_instead_of_falling_back(self):
         meta = {k: v.to("meta") for k, v in bridge_operands().items()}
         with pytest.raises(ValueError, match="cpu or cuda"):
-            tgw.bridge_partials(**meta)
+            tgw.prefix_bridge(**meta)
         meta = {k: v.to("meta") for k, v in tail_operands().items()}
         with pytest.raises(ValueError, match="cpu or cuda"):
             tsp.rowsum_tail(**meta)
@@ -410,8 +584,8 @@ class TestWrappers:
 
 @pytest.fixture
 def spied(monkeypatch):
-    """Count the calls of both wrappers wherever the steps look them up."""
-    calls = {"bridge_partials": 0, "rowsum_tail": 0}
+    """Count the calls of the step's wrappers wherever the steps look them up."""
+    calls = {"prefix_bridge": 0, "ds_cumsum_axis1": 0, "rowsum_tail": 0}
 
     def spy(name, fn):
         def wrapped(*args):
@@ -419,7 +593,8 @@ def spied(monkeypatch):
             return fn(*args)
         return wrapped
 
-    monkeypatch.setattr(tgw, "bridge_partials", spy("bridge_partials", tgw.bridge_partials))
+    monkeypatch.setattr(tgw, "prefix_bridge", spy("prefix_bridge", tgw.prefix_bridge))
+    monkeypatch.setattr(tsp, "ds_cumsum_axis1", spy("ds_cumsum_axis1", tsp.ds_cumsum_axis1))
     monkeypatch.setattr(tsp, "rowsum_tail", spy("rowsum_tail", tsp.rowsum_tail))
     return calls
 
@@ -429,11 +604,14 @@ class TestRoutedPasses:
         x = np.random.default_rng(4).random(plan.n).astype(F32)
         x /= x.sum()
         port_plan = tgw.WindowPlan.from_arrays(plan.to_arrays(core_only=False))
+        args = port_plan.device_args("cpu")
         tgw.windowed_ct(
-            *port_plan.device_args("cpu"), t(x),
-            n_rows=plan.n_rows, table_entries=plan.table_entries,
+            *args, t(x), n_rows=plan.n_rows, table_entries=plan.table_entries,
+            run_ptr=tgw.row_run_ptr(args[3], args[4], plan.n_rows),
         )
-        assert spied == {"bridge_partials": 1, "rowsum_tail": 1}
+        # The plan rows' prefix is inside prefix_bridge; ds_cumsum_axis1
+        # takes rowsum_sorted's blocks.
+        assert spied == {"prefix_bridge": 1, "ds_cumsum_axis1": 1, "rowsum_tail": 1}
 
     def test_power_step_csr_calls_the_tail_once(self, spied):
         g = scale_free(2000, 20_000, seed=5).drop_self_edges()
@@ -444,9 +622,9 @@ class TestRoutedPasses:
             t(g.src), t(g.row_ptr_by_dst()), t(g.weight), t(p), t(p),
             t(dangling.astype(F32)), torch.tensor(0.1),
         )
-        assert spied == {"bridge_partials": 0, "rowsum_tail": 1}
+        assert spied == {"prefix_bridge": 0, "ds_cumsum_axis1": 1, "rowsum_tail": 1}
 
     def test_plain_route_calls_no_wrapper(self, spied):
         e, n = 5000, 300
         tsp.rowsum_sorted_plain(t(adversarial_values(e, "random")), t(pointers(e, n, seed=n)))
-        assert spied == {"bridge_partials": 0, "rowsum_tail": 0}
+        assert spied == {"prefix_bridge": 0, "ds_cumsum_axis1": 0, "rowsum_tail": 0}

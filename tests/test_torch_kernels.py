@@ -168,7 +168,7 @@ class TestWindowedStep:
         hi = rng.random(plan.n_rows * 1024).astype(np.float32)
         lo = (rng.standard_normal(plan.n_rows * 1024) * 1e-8).astype(np.float32)
         args = (hi, lo, plan.seg_end, plan.seg_first, plan.seg_perm)
-        same(tgw.bridge_partials(*map(t, args)), j_bridge(*map(jnp.asarray, args)))
+        same(tgw.bridge_partials_plain(*map(t, args)), j_bridge(*map(jnp.asarray, args)))
 
     def test_windowed_ct(self, plan_case):
         _, _, plan, x = plan_case
@@ -176,7 +176,9 @@ class TestWindowedStep:
         ref = j_windowed_ct(
             *plan.device_args(), jnp.asarray(x), interpret=True, **kw
         )
-        port = tgw.windowed_ct(*port_plan(plan).device_args("cpu"), t(x), **kw)
+        args = port_plan(plan).device_args("cpu")
+        run_ptr = tgw.row_run_ptr(args[3], args[4], plan.n_rows)
+        port = tgw.windowed_ct(*args, t(x), run_ptr=run_ptr, **kw)
         same(port, ref)
 
     def test_power_step_csr(self, plan_case):

@@ -338,7 +338,6 @@ def spied(monkeypatch):
 
     ds = spy("ds_cumsum_axis1", tsp.ds_cumsum_axis1)
     monkeypatch.setattr(tsp, "ds_cumsum_axis1", ds)
-    monkeypatch.setattr(tgw, "ds_cumsum_axis1", ds)
     scan = spy("compensated_cumsum", tsp.compensated_cumsum)
     monkeypatch.setattr(tsp, "compensated_cumsum", scan)
     return calls
@@ -367,7 +366,10 @@ class TestRoutedPasses:
         kw = dict(n_rows=plan.n_rows, table_entries=plan.table_entries)
         ref = j_windowed_ct(*plan.device_args(), jnp.asarray(x), interpret=True, **kw)
         port_plan = tgw.WindowPlan.from_arrays(plan.to_arrays(core_only=False))
-        port = tgw.windowed_ct(*port_plan.device_args("cpu"), t(x), **kw)
-        # The plan rows' prefix, then rowsum_sorted's blocks and block totals.
-        assert spied == {"ds_cumsum_axis1": 2, "compensated_cumsum": 1}
+        args = port_plan.device_args("cpu")
+        run_ptr = tgw.row_run_ptr(args[3], args[4], plan.n_rows)
+        port = tgw.windowed_ct(*args, t(x), run_ptr=run_ptr, **kw)
+        # rowsum_sorted's blocks and block totals; prefix_bridge takes the
+        # plan rows' prefix.
+        assert spied == {"ds_cumsum_axis1": 1, "compensated_cumsum": 1}
         assert_bits_equal(port, ref)
