@@ -9,12 +9,16 @@ runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
 checks the result against the CSR formulation, holds the step's
 double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
-``compensated_scan``), the row prefix and bridge (K7 ``prefix_bridge``)
-and the row sums' pointer tail (K8 ``rowsum_tail``) against their plain
-versions at the shapes the windowed and the CSR step give them (K7 also
-on the 65,536-peer plan, and K5 also at the plan rows, which K7 now
-covers), and the kernel route of both steps against their plain route,
-bit for bit.  Then the card against the CPU,
+``compensated_scan``, which scans the block totals it reads from K5's
+lanes), the row prefix and bridge (K7 ``prefix_bridge``) and the row
+sums' pointer tail (K8 ``rowsum_tail``) against their plain versions at
+the shapes the windowed and the CSR step give them (K7 also on the
+65,536-peer plan, K5 also at the plan rows, which K7 now covers, K6
+also at 1, 3 and 8,200 blocks and past its two depth thresholds, and K8
+also at pointer counts about the end of a warp's tile), times
+the earlier forms of K6 and K8 (``protocol_tpu_torch.bench.yardsticks``)
+beside them and one empty launch, and holds the kernel route of both
+steps against their plain route, bit for bit.  Then the card against the CPU,
 and a churned epoch replay against a cold converge.  Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
@@ -76,6 +80,7 @@ def main() -> None:
         fail(f"protocol_tpu_torch was imported from {protocol_tpu_torch.__file__}, not {HERE}")
     from protocol_tpu_torch.bench import probe_fused_primitives as pfp
     from protocol_tpu_torch.bench import probe_mosaic_gather as pmg
+    from protocol_tpu_torch.bench import yardsticks as ys
     from protocol_tpu_torch.bench._timing import (
         F32_OPS_PER_S, REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
     )
@@ -133,9 +138,10 @@ def main() -> None:
         )
         return dict(res, n_rows=plan.n_rows)
 
-    def device_busy(fn, steps=20):
+    def device_busy(fn, steps=20, launches=None):
         """Device time a call of ``fn`` by kernel name, in ms, from a
-        ``torch.profiler`` trace over ``steps`` calls."""
+        ``torch.profiler`` trace over ``steps`` calls; with a dict
+        ``launches``, also the kernels launched a call, by name."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -145,10 +151,13 @@ def main() -> None:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
-        by_name = {}
+        by_name, counts = {}, {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
                 by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if launches is not None:
+            launches.update({name: c / steps for name, c in counts.items()})
         return by_name
 
     # -- 3. kernel on a 65,536-peer plan -----------------------------------
@@ -181,7 +190,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
-        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.prefix_bridge,
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.block_total_scan, gw.prefix_bridge,
         sp.rowsum_tail, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
     )
     for w in wrappers:
@@ -220,9 +229,9 @@ def main() -> None:
     )
     # A windowed step runs K1 once, K7 once (the plan rows' prefix and the
     # bridge), K5 once (rowsum_sorted's blocks), K6 once (the block
-    # totals) and K8 once (the pointer tail).
+    # totals' scan) and K8 once (the pointer tail).
     expected = dict(
-        gather_windowed=iters, ds_cumsum_axis1=iters, compensated_cumsum=iters,
+        gather_windowed=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
         prefix_bridge=iters, rowsum_tail=iters,
         take_along_axis=0, transpose2d=0, gather_region=0,
     )
@@ -282,20 +291,36 @@ def main() -> None:
         combines = sum(m // 2 + (m + 1) // 2 - 1 for m in sizes)
         return 8 * combines + 2 * sum(sizes)
 
-    def k6_vs_plain(x):
-        n = x.shape[0]
-        nbytes, ops = 12 * n, scan_ops(n)  # x read, hi and lo written
+    def k6_vs_plain(bh, bl):
+        """K6 on prefix lanes ``(bh, bl)``: the block totals read from
+        their last column, then scanned.  Bytes: 4 B of each lane a
+        block read, hi and lo written; operations: the totals' adds and
+        the scan's.  Beside it, the earlier form (the totals' PyTorch
+        add, then the device-memory pyramid kernel), held bit-equal too."""
+        n = bh.shape[0]
+        nbytes, ops = 16 * n, n + scan_ops(n)
         res = kernel_vs_plain(
-            lambda: sp.compensated_cumsum(x), lambda: sp._compensated_cumsum(x),
-            wrapper=sp.compensated_cumsum, nbytes=nbytes, ops=ops,
+            lambda: sp.block_total_scan(bh, bl), lambda: sp._block_total_scan(bh, bl),
+            wrapper=sp.block_total_scan, nbytes=nbytes, ops=ops,
         )
-        return dict(res, shape=[n], ops=ops, bound_by=bound_by(nbytes, ops))
+        earlier = lambda: ys.compensated_scan_global(bh[:, -1] + bl[:, -1])  # noqa: E731
+        totals = bh[:, -1] + bl[:, -1]
+        check(
+            all(same_bits(a, b) for a, b in zip(earlier(), sp._block_total_scan(bh, bl))),
+            f"the earlier block-total scan differs from the plain version at {n} blocks",
+        )
+        return dict(
+            res, shape=[n], ops=ops, bound_by=bound_by(nbytes, ops), earlier_ms=time_ms(earlier),
+            earlier_kernel_ms=time_ms(lambda: ys.compensated_scan_global(totals)),
+        )
 
     def k8_vs_plain(wh, wl, hi_in, lo_in, ptr):
         """K8 on one step's blocks and pointers.  Bytes: the n + 1
         pointers and the n outputs (4 B each), both lanes at each
         distinct pointer (8 B), the block scans (8 B a block); counted
-        in 32-byte sectors, each distinct lane sector read on both lanes."""
+        in 32-byte sectors, each distinct lane sector read on both lanes.
+        Beside it, the earlier form (one thread a pointer), held
+        bit-equal too."""
         n = ptr.shape[0] - 1
         i = ptr.long() - 1
         i = i[i >= 0]
@@ -307,8 +332,18 @@ def main() -> None:
             lambda: sp._rowsum_tail(wh, wl, hi_in, lo_in, ptr),
             wrapper=sp.rowsum_tail, nbytes=nbytes,
         )
+        earlier = lambda: ys.rowsum_tail_scalar(wh, wl, hi_in, lo_in, ptr)  # noqa: E731
+        check(
+            same_bits(earlier(), sp._rowsum_tail(wh, wl, hi_in, lo_in, ptr)),
+            f"the earlier pointer tail differs from the plain version at {n} pointers",
+        )
         return dict(res, shape=list(wh.shape), pointers=n + 1, bound_by="bytes",
-                    bytes_sectors=sector_bytes, bound_ms_sectors=bound_ms(sector_bytes))
+                    bytes_sectors=sector_bytes, bound_ms_sectors=bound_ms(sector_bytes),
+                    earlier_ms=time_ms(earlier))
+
+    # One empty launch: the floor under the small kernels' times.
+    launch_floor_ms = time_ms(lambda: ys.empty_kernel(dev))
+    emit("launch_floor", ms=launch_floor_ms, nvidia_smi=smi)
 
     k5, k6, k8, tails = {}, {}, {}, {}
     for where, x, width in (
@@ -318,13 +353,34 @@ def main() -> None:
         emit("kernel", kernel="ds_cumsum_rows", input=where, **k5[where])
         if where != "plan_rows":
             bh, bl = sp.ds_cumsum_axis1(x, width)
-            totals = bh[:, -1] + bl[:, -1]  # rowsum_sorted's block totals
-            k6[where] = k6_vs_plain(totals)
+            k6[where] = k6_vs_plain(bh, bl)
             emit("kernel", kernel="compensated_scan", input=where, **k6[where])
-            tails[where] = (bh, bl, *sp.compensated_cumsum(totals))
+            tails[where] = (bh, bl, *sp.block_total_scan(bh, bl))
             k8[where] = k8_vs_plain(*tails[where], dst_ptr if where == "windowed_blocks" else ptr_d)
             emit("kernel", kernel="rowsum_tail", input=where, **k8[where])
-            del bh, bl, totals
+            del bh, bl
+    # K6 at the recursion's smallest cases, one block past 1024 chunks of
+    # eight, and past the two depth thresholds (4,097 * 8 and 4,097 * 64
+    # blocks), on seeded random lanes of 4-element blocks.
+    gen = torch.Generator(device=dev)
+    for n_blocks in (1, 3, 1025 * 8, 40_000, 300_000):
+        gen.manual_seed(n_blocks)
+        lh = torch.randn((n_blocks, 4), generator=gen, device=dev) * 1e3
+        ll = torch.randn((n_blocks, 4), generator=gen, device=dev) * 1e-5
+        k6[f"blocks_{n_blocks}"] = k6_vs_plain(lh, ll)
+        emit("kernel", kernel="compensated_scan", input=f"blocks_{n_blocks}", **k6[f"blocks_{n_blocks}"])
+        del lh, ll
+    # K8 where the pointer count meets the end of a warp's tile of 128:
+    # evenly spread pointers over the CSR step's blocks, bit for bit.
+    k8_counts = (2, 3, 5, 128, 129, 130, 131, 4002)
+    for n_ptr in k8_counts:
+        few = torch.linspace(0, contrib.shape[0], n_ptr, device=dev).round().int()
+        check(
+            same_bits(sp.rowsum_tail(*tails["csr_blocks"], few),
+                      sp._rowsum_tail(*tails["csr_blocks"], few)),
+            f"rowsum_tail differs from its plain version at {n_ptr} pointers",
+        )
+    emit("kernel_edges", kernel="rowsum_tail", pointer_counts=list(k8_counts), same_bits=True)
 
     # K7 at the headline's and the 65k plan's slots and run tables.
     def k7_smem_bytes(rows_with_runs, runs, unflagged):
@@ -406,6 +462,11 @@ def main() -> None:
         fail("rowsum_tail took int64 row pointers on the card")
     except TypeError:
         pass
+    try:
+        sp.block_total_scan(lane, lane[:, :4].contiguous())
+        fail("block_total_scan took lanes of two shapes on the card")
+    except ValueError:
+        pass
     idx = torch.zeros(1, dtype=torch.int32, device=dev)
     ptr2 = torch.zeros(2, dtype=torch.int32, device=dev)
     row = torch.zeros(1, gw.ROW, device=dev)
@@ -450,6 +511,8 @@ def main() -> None:
     step_fns = {
         "prefix_bridge": lambda: gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr),
         "prefix_bridge_plain": lambda: gw.prefix_bridge_plain(slots, seg_end, seg_first, seg_perm),
+        "block_total_scan": lambda: sp.block_total_scan(*tails["windowed_blocks"][:2]),
+        "block_total_scan_plain": lambda: sp._block_total_scan(*tails["windowed_blocks"][:2]),
         "rowsum_tail": lambda: sp.rowsum_tail(*tails["windowed_blocks"], dst_ptr),
         "rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["windowed_blocks"], dst_ptr),
         "rowsum_sorted": lambda: sp.rowsum_sorted(part, dst_ptr),
@@ -459,6 +522,7 @@ def main() -> None:
         "whole_step_plain": lambda: windowed_step_plain(t_d),
         # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
         "csr_gather_multiply": lambda: w_d * t_d.index_select(0, src_d),
+        "csr_block_total_scan": lambda: sp.block_total_scan(*tails["csr_blocks"][:2]),
         "csr_rowsum_tail": lambda: sp.rowsum_tail(*tails["csr_blocks"], ptr_d),
         "csr_rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["csr_blocks"], ptr_d),
         "csr_rowsum_sorted": lambda: sp.rowsum_sorted(contrib, ptr_d),
@@ -478,14 +542,20 @@ def main() -> None:
     # Device busy time a step, from a profiler trace, beside the converges'
     # unprofiled wall time an iteration: 1 - busy / wall is the device's idle
     # share.  A measurement, not a check: where the trace holds no device
-    # time, or the profiler fails, the line says "not measured".
+    # time, or the profiler fails, the line says "not measured".  Where it
+    # does, the check: the step's rowsum_sorted launches K5, K6 and K8 once
+    # each and nothing else (K6 reads the block totals from the lanes, so no
+    # PyTorch add builds them).
     profiles = {}
-    for name, fn, wall_ms in (
-        ("windowed", windowed_step, seconds / iters * 1e3),
-        ("csr", csr_step, csr_seconds / iters * 1e3),
+    rowsum_kernels = ("ds_cumsum_rows_kernel", "compensated_scan_kernel", "rowsum_tail_kernel")
+    for name, fn, wall_ms, rowsum in (
+        ("windowed", windowed_step, seconds / iters * 1e3, lambda: sp.rowsum_sorted(part, dst_ptr)),
+        ("csr", csr_step, csr_seconds / iters * 1e3, lambda: sp.rowsum_sorted(contrib, ptr_d)),
     ):
+        step_launches, rowsum_launches = {}, {}
         try:
-            by_name = device_busy(fn)
+            by_name = device_busy(fn, launches=step_launches)
+            device_busy(rowsum, launches=rowsum_launches)
         except Exception as exc:  # noqa: BLE001 - reported, not a check
             profiles[name] = {"busy_ms": "not measured", "error": repr(exc)}
             continue
@@ -496,7 +566,14 @@ def main() -> None:
         profiles[name] = {
             "busy_ms": busy, "wall_ms_per_iter": wall_ms, "idle_share": 1.0 - busy / wall_ms,
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
+            "kernels_a_step": sum(step_launches.values()),
+            "rowsum_sorted_kernels": rowsum_launches,
         }
+        check(
+            sorted(rowsum_launches.values()) == [1.0, 1.0, 1.0]
+            and all(any(k in kn for kn in rowsum_launches) for k in rowsum_kernels),
+            f"the {name} step's rowsum_sorted launched {rowsum_launches}, not K5, K6 and K8 once each",
+        )
     emit("step_profile", **profiles)
     del out, slots, part, ct, step_fns, src_d, ptr_d, w_d, contrib, tails, run_ptr
 
@@ -504,9 +581,14 @@ def main() -> None:
         """A ``kernels`` entry for a kernel of the step: the main path's
         input (``main``) for the times, every input's measurement under
         ``shapes``.  No one PyTorch call computes any of them."""
-        extra = {k: runs[main][k] for k in ("bound_ms_sectors",) if k in runs[main]}
+        extra = {
+            k: runs[main][k]
+            for k in ("bound_ms_sectors", "earlier_ms", "earlier_kernel_ms")
+            if k in runs[main]
+        }
         return {
             "name": name,
+            "wrapper": wrapper,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
@@ -524,7 +606,8 @@ def main() -> None:
             **more,
             "shapes": {
                 where: {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bytes",
-                                          "bound_ms_sectors", "max_abs_err") if k in r}
+                                          "bound_ms_sectors", "earlier_ms", "max_abs_err")
+                        if k in r}
                 for where, r in runs.items()
             },
         }
@@ -548,9 +631,12 @@ def main() -> None:
         step_entry("ds_cumsum_rows", "ds_cumsum_axis1",
                    "protocol_tpu_torch/ops/csrc/ds_cumsum_rows.cu",
                    "protocol_tpu/ops/sparse.py:80", k5, "windowed_blocks"),
-        step_entry("compensated_scan", "compensated_cumsum",
+        # K6 and K8 beside their earlier forms (bench/yardsticks.py) and
+        # one empty launch, all timed in this run.
+        step_entry("compensated_scan", "block_total_scan",
                    "protocol_tpu_torch/ops/csrc/compensated_scan.cu",
-                   "protocol_tpu/ops/sparse.py:41", k6, "windowed_blocks"),
+                   "protocol_tpu/ops/sparse.py:41 + :120", k6, "windowed_blocks",
+                   launch_floor_ms=launch_floor_ms),
         # K7 replaced K5's launch over the plan rows and a two-pass bridge
         # kernel; the first is still measured above, on the same slots.
         step_entry("prefix_bridge", "prefix_bridge",
@@ -559,14 +645,15 @@ def main() -> None:
                    k7, "headline", earlier_ms={"ds_cumsum_rows_plan_rows": k5["plan_rows"]["ms"]}),
         step_entry("rowsum_tail", "rowsum_tail",
                    "protocol_tpu_torch/ops/csrc/rowsum_tail.cu",
-                   "protocol_tpu/ops/sparse.py:94", k8, "windowed_blocks"),
+                   "protocol_tpu/ops/sparse.py:94", k8, "windowed_blocks",
+                   launch_floor_ms=launch_floor_ms),
     ]
 
     # -- 5. card vs CPU at 65,536 peers ------------------------------------
     g_small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
     kw5 = dict(alpha=0.1, tol=1e-6, max_iter=60)
     step_wrappers = (
-        gw.gather_windowed, sp.ds_cumsum_axis1, sp.compensated_cumsum, gw.prefix_bridge,
+        gw.gather_windowed, sp.ds_cumsum_axis1, sp.block_total_scan, gw.prefix_bridge,
         sp.rowsum_tail,
     )
     before = {w.__name__: w.launches for w in step_wrappers}
@@ -583,7 +670,7 @@ def main() -> None:
     it = on_card.iterations
     check(
         card_launches == dict(
-            gather_windowed=it, ds_cumsum_axis1=it, compensated_cumsum=it,
+            gather_windowed=it, ds_cumsum_axis1=it, block_total_scan=it,
             prefix_bridge=it, rowsum_tail=it,
         ),
         f"the card converge's {it} iterations launched {card_launches}",

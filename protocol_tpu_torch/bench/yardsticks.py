@@ -1,0 +1,68 @@
+"""Kernels that ``chip_smoke.py`` times beside the port's, on the card only.
+
+- ``compensated_scan_global(x)``: the earlier form of the block-total
+  scan (``bench/csrc/compensated_scan_global.cu``): one block over a
+  device-memory level pyramid, fed by a separate PyTorch add of the
+  block totals.  ``ops/sparse.py::block_total_scan`` replaced it.
+- ``rowsum_tail_scalar(wh, wl, hi_in, lo_in, row_ptr)``: the earlier
+  form of the pointer tail (``bench/csrc/rowsum_tail_scalar.cu``), one
+  thread a pointer.  ``ops/sparse.py::rowsum_tail`` replaced it.
+- ``empty_kernel()``: one launch of an empty kernel, the floor under
+  every small kernel's time.
+
+The port never calls them.  Each takes CUDA tensors only and raises
+otherwise; they keep no launch counts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from protocol_tpu_torch.ops import _build
+from protocol_tpu_torch.ops.sparse import _check_tail_operands
+
+
+def _cuda(name: str, **operands: torch.Tensor) -> torch.device:
+    device = _build.operand_device(name, **operands)
+    if device.type != "cuda":
+        raise ValueError(f"{name} is a yardstick on the card: it takes CUDA tensors only")
+    return device
+
+
+def compensated_scan_global(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The earlier block-total scan of a contiguous 1-D float32 ``x``."""
+    if x.dim() != 1 or x.dtype != torch.float32:
+        raise ValueError("compensated_scan_global takes a 1-D float32 tensor")
+    device = _cuda("compensated_scan_global", x=x)
+    n = x.shape[0]
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    if n:
+        scratch = x.new_empty((n, 2))  # the levels above the input
+        _build.launch(
+            "compensated_scan_global", device,
+            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), scratch.data_ptr(), n,
+        )
+    return hi, lo
+
+
+def rowsum_tail_scalar(wh, wl, hi_in, lo_in, row_ptr) -> torch.Tensor:
+    """The earlier pointer tail, on the operands ``rowsum_tail`` takes."""
+    _check_tail_operands(wh, wl, hi_in, lo_in, row_ptr)
+    device = _cuda("rowsum_tail_scalar", wh=wh, wl=wl, hi_in=hi_in, lo_in=lo_in, row_ptr=row_ptr)
+    n_blocks, b = wh.shape
+    n = row_ptr.shape[0] - 1
+    out = wh.new_empty(n)
+    if n:
+        _build.launch(
+            "rowsum_tail_scalar", device, wh.data_ptr(), wl.data_ptr(), hi_in.data_ptr(),
+            lo_in.data_ptr(), row_ptr.data_ptr(), out.data_ptr(), n_blocks, b, n,
+        )
+    return out
+
+
+def empty_kernel(device: torch.device | str = "cuda") -> None:
+    """One launch of an empty kernel on ``device``'s current stream."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("empty_kernel is a yardstick on the card: it takes a CUDA device")
+    _build.launch("empty_kernel", device)

@@ -1,6 +1,9 @@
 """Build, load and launch the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exports one C function of the same name.  At
+Each ``csrc/<name>.cu`` exports one C function of the same name, as
+does each source ``protocol_tpu_torch/bench/csrc/<name>.cu`` (yardsticks
+and probes that ``chip_smoke.py`` and ``bench/`` time beside the port's
+kernels; the port never calls them).  At
 first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library under ``build/protocol_tpu_torch/`` at the repository root
 (listed in ``.gitignore``) and loaded with ``ctypes``.  The library's
@@ -24,6 +27,7 @@ import time
 import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BENCH_CSRC = pathlib.Path(__file__).resolve().parents[1] / "bench" / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "protocol_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,9 +62,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (x, hi, lo, scratch, n, stream)
+    # (wh, wl, hi, lo, n, block, stream)
     "compensated_scan": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (slots, seg_end, seg_first, seg_perm, row_run_ptr, partial, out, n_rows, s, stream)
@@ -73,7 +77,30 @@ SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # Yardsticks (bench/csrc).  (x, hi, lo, scratch, n, stream)
+    "compensated_scan_global": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (wh, wl, hi_in, lo_in, row_ptr, out, n_blocks, block, n, stream)
+    "rowsum_tail_scalar": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (stream)
+    "empty_kernel": ([ctypes.c_void_p], ctypes.c_int),
+    # (wh, wl, hi_in, lo_in, row_ptr, out, n_blocks, block, n, per, resident, layout, stream)
+    "rowsum_tail_forms": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
+
+#: The sources under ``bench/csrc``: yardsticks and probes, which may
+#: include a kernel source of ``csrc``.
+BENCH_KERNELS = (
+    "compensated_scan_global", "rowsum_tail_scalar", "empty_kernel", "rowsum_tail_forms",
+)
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -89,11 +116,19 @@ def _nvcc() -> str:
     return found
 
 
+def source(name: str) -> pathlib.Path:
+    """Kernel ``name``'s CUDA source."""
+    return (BENCH_CSRC if name in BENCH_KERNELS else CSRC) / f"{name}.cu"
+
+
 def library_path(name: str) -> pathlib.Path:
     """Where ``name``'s shared library lives once built."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.read_bytes())
+    digest = hashlib.sha256(source(name).read_bytes())
+    deps = sorted(CSRC.glob("*.cuh"))
+    if name in BENCH_KERNELS:  # they may include a kernel source
+        deps += sorted(CSRC.glob("*.cu"))
+    for dep in deps:
+        digest.update(dep.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
@@ -111,7 +146,7 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
         if so.exists():
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, so, time.perf_counter())
     report = {}

@@ -12,10 +12,10 @@ reductions may run in another order.  None of these passes is a Pallas
 kernel in the reference (they are jit'd XLA).  ``rowsum_sorted``'s three
 passes run as hand-written CUDA kernels on a card, with the same op
 order: ``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``),
-``compensated_cumsum`` (``csrc/compensated_scan.cu``) and
-``rowsum_tail`` (``csrc/rowsum_tail.cu``); their plain versions
-``_ds_cumsum_axis1``, ``_compensated_cumsum`` and ``_rowsum_tail`` serve
-CPU tensors.  The CSR gather-multiply and the epilogue stay plain
+``block_total_scan`` (``csrc/compensated_scan.cu``, which reads the
+block totals from the prefix lanes itself) and ``rowsum_tail``
+(``csrc/rowsum_tail.cu``); their plain versions ``_ds_cumsum_axis1``,
+``_block_total_scan`` and ``_rowsum_tail`` serve CPU tensors.  The CSR gather-multiply and the epilogue stay plain
 PyTorch; the times on the card are in PERF.md.
 """
 
@@ -84,32 +84,47 @@ def _check_prefix_operand(x: torch.Tensor, name: str, dim: int) -> None:
         raise ValueError(f"{name} takes a contiguous tensor")
 
 
-def compensated_cumsum(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_compensated_cumsum`` of a contiguous 1-D float32 ``x``.
+def _block_total_scan(wh: torch.Tensor, wl: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``block_total_scan``: the reference's
+    composition, ``_compensated_cumsum(wh[:, -1] + wl[:, -1])``."""
+    return _compensated_cumsum(wh[:, -1] + wl[:, -1])
 
-    On a CUDA tensor this launches ``csrc/compensated_scan.cu`` (one
-    block, the recursion as an up- and a down-sweep) and adds one to
-    ``compensated_cumsum.launches``; a launch the card refuses raises.
-    On a CPU tensor it is the plain version.  Any other device raises."""
-    _check_prefix_operand(x, "compensated_cumsum", 1)
-    device = _build.operand_device("compensated_scan", x=x)
+
+def block_total_scan(wh: torch.Tensor, wl: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_block_total_scan`` of the contiguous float32 prefix lanes
+    ``(wh, wl)`` (n_blocks, B): the inclusive double-single scan of the
+    block totals ``wh[:, -1] + wl[:, -1]``.
+
+    On CUDA tensors this launches ``csrc/compensated_scan.cu`` (one
+    block: it reads the totals from the lanes, keeps three levels of the
+    recursion a pass in registers and the levels above in shared memory)
+    and adds one to ``block_total_scan.launches``; a launch the card
+    refuses raises.  On CPU tensors it is the plain version.  Mixed or
+    other devices raise."""
+    _check_prefix_operand(wh, "block_total_scan", 2)
+    _check_prefix_operand(wl, "block_total_scan", 2)
+    if wl.shape != wh.shape:
+        raise ValueError(
+            f"block_total_scan: wl has shape {tuple(wl.shape)}, wh {tuple(wh.shape)}"
+        )
+    if wh.shape[1] < 1:
+        raise ValueError("block_total_scan takes blocks of at least one element")
+    device = _build.operand_device("compensated_scan", wh=wh, wl=wl)
     if device.type == "cpu":
-        return _compensated_cumsum(x)
-    n = x.shape[0]
-    hi, lo = torch.empty_like(x), torch.empty_like(x)
+        return _block_total_scan(wh, wl)
+    n, b = wh.shape
+    hi, lo = wh.new_empty(n), wh.new_empty(n)
     if n:
-        # The levels above the input: n - 1 (hi, lo) pairs at most.
-        scratch = x.new_empty((n, 2))
         _build.launch(
             "compensated_scan", device,
-            x.data_ptr(), hi.data_ptr(), lo.data_ptr(), scratch.data_ptr(), n,
+            wh.data_ptr(), wl.data_ptr(), hi.data_ptr(), lo.data_ptr(), n, b,
         )
-        compensated_cumsum.launches += 1
+        block_total_scan.launches += 1
     return hi, lo
 
 
 #: Kernel launches in this process (the plain version does not count).
-compensated_cumsum.launches = 0  # type: ignore[attr-defined]
+block_total_scan.launches = 0  # type: ignore[attr-defined]
 
 
 #: Edges per cumsum block in the hierarchical row-sum.
@@ -267,8 +282,8 @@ def rowsum_tail(
     float32 block-total scans ``(hi_in, lo_in)`` (n_blocks,) and int32
     ``row_ptr`` (n + 1,): the n row sums.
 
-    On CUDA tensors this launches ``csrc/rowsum_tail.cu`` (one thread a
-    pointer) and adds one to ``rowsum_tail.launches``; a launch the card
+    On CUDA tensors this launches ``csrc/rowsum_tail.cu`` (four pointers
+    a thread) and adds one to ``rowsum_tail.launches``; a launch the card
     refuses raises.  On CPU tensors it is the plain version.  Mixed or
     other devices raise."""
     _check_tail_operands(wh, wl, hi_in, lo_in, row_ptr)
@@ -298,21 +313,21 @@ def rowsum_sorted(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     ``out[j] = sum(contrib[row_ptr[j] : row_ptr[j+1]])``, through the
     reference's hierarchical double-single prefix: block-local
     Hillis-Steele over zero-padded 2048-blocks (``ds_cumsum_axis1``), a
-    TwoSum scan over block totals (``compensated_cumsum``), then the
+    TwoSum scan over block totals (``block_total_scan``), then the
     pointer lookups and hi/lo-separate differencing (``rowsum_tail``)."""
-    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, compensated_cumsum, rowsum_tail)
+    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, block_total_scan, rowsum_tail)
 
 
 def rowsum_sorted_plain(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """``rowsum_sorted`` through the three passes' plain versions on any
     device, the padding into blocks a real copy: the route the kernels'
     route is held against on the card."""
-    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_blocks, _compensated_cumsum, _rowsum_tail)
+    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_blocks, _block_total_scan, _rowsum_tail)
 
 
 def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan, tail) -> torch.Tensor:
     wh, wl = ds_cumsum(contrib, _ROWSUM_BLOCK)
-    hi_in, lo_in = scan(wh[:, -1] + wl[:, -1])
+    hi_in, lo_in = scan(wh, wl)
     return tail(wh, wl, hi_in, lo_in, row_ptr)
 
 

@@ -17,9 +17,10 @@ against their plain versions.  Here:
 - each kernel's schedule is written out as a numpy float32 emulation
   (K7: the row prefix by K5's schedule, the run epilogue from the row's
   prefix and the four-wide permutation with its scalar tail, with the
-  kernel's index clamps; K8: one thread a pointer, the C integer
-  division and the ``blk - 1`` exclusive prefix, the next pointer's
-  prefix from the next lane or, in lane 31, computed again) and held
+  kernel's index clamps; K8: a warp's tile of 32 x 4 pointers, four
+  slots a lane, the C integer division and the ``blk - 1`` exclusive
+  prefix, the next pointer's prefix from the next lane, for lane 31
+  from lane 0's next slot or its own extra read) and held
   bit-equal to the plain version, denormal rows included; broken
   pointer tables stay in bounds with the clamps and go out of bounds
   without them;
@@ -140,16 +141,33 @@ def emulate_prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr, clamp=Tr
     return out
 
 
-def emulate_rowsum_tail(wh, wl, hi_in, lo_in, row_ptr):
-    """``rowsum_tail.cu`` as it runs: thread j computes the prefix before
-    pointer j with C's truncating division (i >= 0 there), ``min`` for
-    the clamp and ``hi_in[blk - 1]`` (+0.0 for block 0) for the exclusive
-    block prefix; the prefix at pointer j + 1 comes from the next lane,
-    or lane 31 computes it again."""
-    n_blocks, b = wh.shape
+#: Pointers a thread of ``rowsum_tail.cu``.
+K8_PER = 4
 
-    def prefix(ptr):
-        i = ptr.astype(np.int64) - 1
+
+def emulate_rowsum_tail(wh, wl, hi_in, lo_in, row_ptr, per=K8_PER, reads=None):
+    """``rowsum_tail.cu`` as it runs: warp w takes the tile of 32 * per
+    pointers from w * 32 * per, lane l slot i the pointer j = tile +
+    32 i + l where j <= n; each prefix with C's truncating division
+    (i >= 0 there), ``min`` for the clamp and ``hi_in[blk - 1]`` (+0.0
+    for block 0) for the exclusive block prefix, +0.0 for an absent or
+    ``i < 0`` pointer; lane 31 also reads the first pointer of the next
+    tile.  Output j takes P(j + 1) from the next lane's slot i by one
+    shuffle, lane 31 from lane 0's slot i + 1 or, in the last slot, from
+    its own extra prefix.  ``reads``, a list, gets every pointer index
+    read, one array per slot and the extra reads last."""
+    n_blocks, b = wh.shape
+    n = row_ptr.shape[0] - 1
+    tile = 32 * per
+    tiles = (n + tile) // tile
+    lane = np.arange(32)
+
+    def prefix(idx, have):
+        """(hi, lo) before the pointers at ``idx`` where ``have``."""
+        if reads is not None:
+            reads.append(idx[have])
+        assert not have.any() or (idx[have].min() >= 0 and idx[have].max() <= n), "out of bounds"
+        i = np.where(have, row_ptr[np.where(have, idx, 0)].astype(np.int64) - 1, -1)
         live = i >= 0
         i = np.where(live, i, 0)
         blk = np.minimum(i // b, n_blocks - 1)
@@ -159,13 +177,22 @@ def emulate_rowsum_tail(wh, wl, hi_in, lo_in, row_ptr):
         h, l = np_ds_add(h, l, wh.reshape(-1)[at], wl.reshape(-1)[at])
         return np.where(live, h, F32(0.0)), np.where(live, l, F32(0.0))
 
-    n = row_ptr.shape[0] - 1
-    ph, pl = prefix(row_ptr)
-    j = np.arange(n)
-    qh, ql = ph[1:].copy(), pl[1:].copy()  # the shuffle
-    last = j % WARP == WARP - 1
-    qh[last], ql[last] = prefix(row_ptr[j[last] + 1])
-    return (qh - ph[:-1]) + (ql - pl[:-1])
+    # Registers (tiles, 32) of slots 0 .. per - 1, then lane 31's extra slot.
+    j0 = np.arange(tiles)[:, None] * tile + lane[None, :]
+    slots = [prefix(j0 + 32 * i, j0 + 32 * i <= n) for i in range(per)]
+    nxt = j0 + tile - 31
+    slots.append(prefix(nxt, (lane[None, :] == 31) & (nxt <= n)))
+    out = np.full(n, np.nan, F32)
+    for i in range(per):
+        ph, pl = slots[i]
+        qh, ql = np.zeros_like(ph), np.zeros_like(pl)
+        qh[:, :31], ql[:, :31] = ph[:, 1:], pl[:, 1:]  # the shuffle down by one
+        src = slots[i + 1]
+        qh[:, 31], ql[:, 31] = (src[0][:, 0], src[1][:, 0]) if i + 1 < per else (src[0][:, 31], src[1][:, 31])
+        j = j0 + 32 * i
+        keep = j < n
+        out[j[keep]] = ((qh - ph) + (ql - pl))[keep]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +416,35 @@ class TestKernelSchedules:
         row_ptr = np.array([0, B - 1, B, B + 1, 2 * B, 2 * B + 5, 3 * B + 1], np.int32)
         port = tsp._rowsum_tail(*lanes, t(row_ptr))
         assert_bits_equal(emulate_rowsum_tail(*(a.numpy() for a in lanes), row_ptr), port)
+
+    @pytest.mark.parametrize("per", [1, 2, K8_PER, 8])
+    @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 31, 32, 33, 63, 126, 127, 128, 129, 130,
+                                   131, 255, 256, 257, 383, 511, 512, 513])
+    def test_rowsum_tail_schedule_pointer_counts(self, n, per):
+        """Pointer counts n + 1 in every residue mod 4 and beside the
+        multiples of a warp (32) and of a warp's tile (32 * per): the
+        last tile's absent slots, lane 31's extra read and the shuffle
+        from lane 0's next slot all meet the end of the pointers."""
+        e = 3 * B + 17
+        lanes = plain_blocks(adversarial_values(e, "mixed", seed=n))
+        row_ptr = pointers(e, n, seed=n, kind="block_edges" if n > 8 else "random")
+        port = tsp._rowsum_tail(*lanes, t(row_ptr))
+        emulated = emulate_rowsum_tail(*(a.numpy() for a in lanes), row_ptr, per=per)
+        assert_bits_equal(emulated, port)
+
+    @pytest.mark.parametrize("n", [1, 126, 127, 128, 129, 1000])
+    def test_rowsum_tail_schedule_reads_each_pointer_once(self, n):
+        """Every pointer is read once by its own slot, and lane 31 reads
+        one more, the first of the next tile, only where its last output
+        needs it: one extra read per tile with a pointer after it."""
+        e = 5000
+        lanes = [a.numpy() for a in plain_blocks(adversarial_values(e, "random"))]
+        reads = []
+        emulate_rowsum_tail(*lanes, pointers(e, n, seed=n), reads=reads)
+        own, extra = np.concatenate(reads[:K8_PER]), reads[K8_PER]
+        np.testing.assert_array_equal(np.sort(own), np.arange(n + 1))
+        tile = 32 * K8_PER
+        np.testing.assert_array_equal(extra, np.arange(tile, n + 1, tile))
 
 
 # ---------------------------------------------------------------------------

@@ -111,7 +111,12 @@ def test_kernel_build_is_lazy_and_keyed_by_source():
     path = _build.library_path("gather_window")
     assert path.parent == REPO / "build" / "protocol_tpu_torch"
     assert path.name.startswith("gather_window-") and path.suffix == ".so"
-    assert set(_build.SIGNATURES) == {p.stem for p in (PORT / "ops" / "csrc").glob("*.cu")}
+    kernels = {p.stem for p in (PORT / "ops" / "csrc").glob("*.cu")}
+    bench = {p.stem for p in (PORT / "bench" / "csrc").glob("*.cu")}
+    assert set(_build.BENCH_KERNELS) == bench and not kernels & bench
+    assert set(_build.SIGNATURES) == kernels | bench
+    assert _build.source("rowsum_tail").parent == PORT / "ops" / "csrc"
+    assert _build.source("rowsum_tail_scalar").parent == PORT / "bench" / "csrc"
 
 
 def test_lazy_submodules():
