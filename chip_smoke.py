@@ -22,7 +22,9 @@ steps against their plain route, bit for bit.  Then the card against the CPU,
 and a churned epoch replay against a cold converge.  Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
-versions and library calls bit for bit.
+versions and library calls bit for bit, with event and trace times, K2
+beside its earlier form; then K2 and K3 at their edge shapes
+(``probe_edges``).
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
@@ -734,11 +736,15 @@ def main() -> None:
     probe_launches = {name: w.launches for name, (w, _, _) in probe_kernels.items()}
     for rec in records:
         emit("probe", **rec)
+    # K2 and K3 records also count the launches of their traces
+    # (``launches_total``); ``launches`` stays the timed comparison's.
     per_shape = 1 + WARMUP + REPS
     for name, (_, source, replaces) in probe_kernels.items():
         shapes = [r for r in records if r.get("kernel") == name]
         check(bool(shapes), f"the probes measured no shape of {name}")
-        made = per_shape * len(shapes)
+        check(all(r["launches"] == per_shape for r in shapes),
+              f"{name}'s timed comparisons did not launch it {per_shape} times each")
+        made = sum(r.get("launches_total", per_shape) for r in shapes)
         check(
             probe_launches[name] == made,
             f"{name} counted {probe_launches[name]} launches, the probes made {made}",
@@ -760,9 +766,18 @@ def main() -> None:
                 "bound_ms": largest["bound_ms"],
                 "bound_by": "bytes",
                 "library_ms": largest["library_ms"],
+                **{k: largest[k] for k in ("trace_ms", "earlier_ms", "earlier_trace_ms", "regime")
+                   if k in largest},
             }
         )
-    emit("probes", seconds=probe_seconds, measurements=len(records), launches=probe_launches)
+    emit("probes", seconds=probe_seconds, measurements=len(records), launches=probe_launches,
+         launch_floor_ms=launch_floor_ms, nvidia_smi=smi)
+    # K2 and its earlier form at the regimes' limits, with indices at both
+    # ends of the range and outside it; K3 at ragged and unaligned shapes.
+    # A difference raises.
+    t0 = time.perf_counter()
+    edges = pmg.check_edges()
+    emit("probe_edges", seconds=time.perf_counter() - t0, **edges)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(

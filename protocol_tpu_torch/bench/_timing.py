@@ -104,3 +104,38 @@ def kernel_vs_plain(kernel, plain, *, wrapper, nbytes: int, ops: int = 0, librar
         bytes=nbytes,
         launches=wrapper.launches - before,
     )
+
+
+#: Profiler sessions ``trace_ms`` takes at most before it gives up.
+TRACE_TRIES = 3
+
+
+def trace_ms(fn, calls: int = REPS) -> float | None:
+    """Device time in ms of one call of ``fn``, a call that launches one
+    kernel: the median duration of that kernel's launches in a
+    ``torch.profiler`` trace over ``calls`` calls after one untimed call.
+    Without the launch or the gaps between kernels.
+
+    After the port's other profiler sessions in one process, a trace may
+    hold only some of the launches, or none (seen on an H100 with torch
+    2.11), while each launch it holds has its true duration.  So the
+    kernel is the name launched most often in the trace, the median
+    keeps out a stray event, and a trace with no device event is taken
+    again, up to ``TRACE_TRIES`` times.  None where none held one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by_name: dict[str, list[float]] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
+            return statistics.median(max(by_name.values(), key=len)) / 1e3
+    return None

@@ -9,6 +9,9 @@
   thread a pointer.  ``ops/sparse.py::rowsum_tail`` replaced it.
 - ``empty_kernel()``: one launch of an empty kernel, the floor under
   every small kernel's time.
+- ``take_along_axis_ldg(t, idx, axis)``: the earlier K2
+  (``bench/csrc/take_along_axis_ldg.cu``), one read of the table a
+  gathered element.  ``ops/csrc/take_along_axis.cu`` replaced it.
 
 The port never calls them.  Each takes CUDA tensors only and raises
 otherwise; they keep no launch counts.
@@ -66,3 +69,20 @@ def empty_kernel(device: torch.device | str = "cuda") -> None:
     if device.type != "cuda":
         raise ValueError("empty_kernel is a yardstick on the card: it takes a CUDA device")
     _build.launch("empty_kernel", device)
+
+
+def take_along_axis_ldg(t: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
+    """The earlier K2 on the operands ``take_along_axis`` takes."""
+    if axis not in (0, 1) or t.dim() != 2 or tuple(idx.shape) != tuple(t.shape) or t.shape[1] % 4:
+        raise ValueError("take_along_axis_ldg takes a 2-D t with a multiple of 4 columns and idx of its shape")
+    if t.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError("take_along_axis_ldg takes float32 t and int32 idx")
+    device = _cuda("take_along_axis_ldg", t=t, idx=idx)
+    out = torch.empty_like(t)
+    if out.numel():
+        rows, cols = t.shape
+        _build.launch(
+            "take_along_axis_ldg", device, t.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
+            axis,
+        )
+    return out

@@ -42,9 +42,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (t, idx, out, rows, cols, axis, stream)
+    # (t, idx, out, rows, cols, axis, regime, parts, per, stream)
     "take_along_axis": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (t, out, rows, cols, stream)
@@ -89,6 +89,11 @@ SIGNATURES = {
     ),
     # (stream)
     "empty_kernel": ([ctypes.c_void_p], ctypes.c_int),
+    # (t, idx, out, rows, cols, axis, stream)
+    "take_along_axis_ldg": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     # (wh, wl, hi_in, lo_in, row_ptr, out, n_blocks, block, n, per, resident, layout, stream)
     "rowsum_tail_forms": (
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
@@ -100,6 +105,7 @@ SIGNATURES = {
 #: include a kernel source of ``csrc``.
 BENCH_KERNELS = (
     "compensated_scan_global", "rowsum_tail_scalar", "empty_kernel", "rowsum_tail_forms",
+    "take_along_axis_ldg",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -306,3 +306,254 @@ class TestProbeModules:
         lines = out.stdout.strip().splitlines()
         assert len(lines) == 1, out.stdout  # the import itself printed nothing
         assert json.loads(lines[0]) == dict(numpy_bytes=0, arrays=[], cuda=False)
+
+
+# -- K2's schedule, emulated ---------------------------------------------------
+#
+# numpy mirrors of csrc/take_along_axis.cu's two regimes: which block
+# stages which row and serves which outputs, with the kernel's clamps.
+# Each shows every output element written exactly once and bit-equal to
+# the plain version.
+
+K2_SOURCE = REPO / "protocol_tpu_torch" / "ops" / "csrc" / "take_along_axis.cu"
+K3_SOURCE = REPO / "protocol_tpu_torch" / "ops" / "csrc" / "transpose2d.cu"
+THREADS_SMEM, THREADS_DIRECT = 512, 256
+
+
+def _part(n, q, parts):
+    return q * n // parts, (q + 1) * n // parts
+
+
+def emulate_take(table, idx, axis, g):
+    """K2's launch ``g`` (a ``Geometry``) on numpy arrays: (out, writes
+    per element)."""
+    rows, cols = table.shape
+    flat_t, flat_i = table.ravel(), idx.ravel().astype(np.int64)
+    out = np.zeros(rows * cols, np.float32)
+    writes = np.zeros(rows * cols, np.int64)
+
+    def put(e, v):
+        np.add.at(writes, e, 1)
+        out[e] = v
+
+    if g.regime == "direct":  # per / 4 float4 units a thread, a block-width apart
+        n4 = rows * cols // 4
+        units = g.per // 4
+        for blk in range(-(-n4 // (THREADS_DIRECT * units))):
+            first = blk * THREADS_DIRECT * units
+            for start in range(first, first + THREADS_DIRECT * units, THREADS_DIRECT):
+                u = np.arange(start, min(start + THREADS_DIRECT, n4))
+                e = (4 * u[:, None] + np.arange(4)).ravel()
+                r, c = e // cols, e % cols
+                k = flat_i[e]
+                src = r * cols + np.clip(k, 0, cols - 1) if axis == 1 else np.clip(k, 0, rows - 1) * cols + c
+                put(e, flat_t[src])
+    else:  # smem, axis 1: block b stages row b // parts, serves part b % parts
+        assert axis == 1 and cols <= pmg.STAGE_MAX_FLOATS
+        for blk in range(rows * g.parts):
+            r = blk // g.parts
+            stage = flat_t[r * cols:(r + 1) * cols].copy()
+            lo, hi = _part(cols // 4, blk % g.parts, g.parts)
+            # Two units a thread in flight: i and i + 512, then 1,024 on.
+            for i0 in range(lo, hi, 2 * THREADS_SMEM):
+                for u in (np.arange(i0, min(i0 + THREADS_SMEM, hi)),
+                          np.arange(i0 + THREADS_SMEM, min(i0 + 2 * THREADS_SMEM, hi))):
+                    e = (4 * u[:, None] + np.arange(4)).ravel()
+                    put(r * cols + e, stage[np.clip(flat_i[r * cols + e], 0, cols - 1)])
+    return out.reshape(rows, cols), writes.reshape(rows, cols)
+
+
+def planted_indices(axis, rows, cols, seed):
+    """Random indices with 0, the range's last index and values outside
+    the range in every seventh element, as the chip's edge checks draw."""
+    hi = rows if axis == 0 else cols
+    idx = np.random.default_rng(seed).integers(0, hi, (rows, cols)).astype(np.int32)
+    planted = np.array([0, hi - 1, -1, hi, -(2**31), 2**31 - 1], np.int32)
+    flat = idx.reshape(-1)
+    at = np.arange(0, flat.size, 7)
+    flat[at] = planted[np.arange(at.size) % planted.size]
+    return idx
+
+
+def held(axis, rows, cols, g):
+    """The launch ``g`` emulated at one shape, held to the plain version."""
+    table = np.random.default_rng(rows * 31 + cols).random((rows, cols), dtype=np.float32)
+    idx = planted_indices(axis, rows, cols, rows + cols)
+    out, writes = emulate_take(table, idx, axis, g)
+    assert (writes == 1).all(), f"{g}: elements written {np.unique(writes)} times"
+    clamped = np.clip(idx, 0, (rows if axis == 0 else cols) - 1)
+    ref = pmg.take_along_axis_plain(t(table), t(clamped), axis).numpy()
+    np.testing.assert_array_equal(out.view(np.int32), ref.view(np.int32))
+
+
+# +- 4 columns about each limit: where rows start and stop being staged,
+# and where the direct regime changes its elements a thread.
+AXIS1_EDGE_COLS = [c + d for c in (1024, 2048, pmg.SMEM_MIN_COLS, pmg.STAGE_MAX_FLOATS)
+                   for d in (-4, 0, 4)]
+
+
+class TestTakeAlongAxisSchedule:
+    @pytest.mark.parametrize("sms", [6, 132])
+    @pytest.mark.parametrize("rows", [1, 3, 5])
+    @pytest.mark.parametrize("cols", [4, 8, 12, *AXIS1_EDGE_COLS])
+    def test_axis1_launch_writes_each_element_once(self, rows, cols, sms):
+        g = pmg.take_along_axis_geometry(1, rows, cols, sms)
+        assert g.regime == ("smem" if pmg.SMEM_MIN_COLS < cols <= pmg.STAGE_MAX_FLOATS else "direct")
+        held(1, rows, cols, g)
+
+    @pytest.mark.parametrize("rows, cols", [(1, 131068), (2, 131072), (1, 131076)])
+    def test_axis1_launch_about_the_last_16_a_thread_row(self, rows, cols):
+        g = pmg.take_along_axis_geometry(1, rows, cols, 132)
+        assert g == pmg.Geometry("direct", per=16 if cols <= 131072 else 4)
+        held(1, rows, cols, g)
+
+    @pytest.mark.parametrize("rows", [1, 3, 16, 17, 40])
+    @pytest.mark.parametrize("cols", [4, 12, 64, 132])
+    def test_axis0_launch_writes_each_element_once(self, rows, cols):
+        g = pmg.take_along_axis_geometry(0, rows, cols, 6)
+        assert g == pmg.Geometry("direct", per=4)
+        held(0, rows, cols, g)
+
+    @pytest.mark.parametrize("axis, rows, cols, regime, parts, per", [
+        (1, 8192, 128, "direct", 1, 4), (1, 1024, 1024, "direct", 1, 4), (1, 512, 2048, "direct", 1, 8),
+        (1, 256, 4096, "direct", 1, 16), (1, 256, 4100, "smem", 1, 0), (1, 128, 8192, "smem", 2, 0),
+        (1, 64, 16384, "smem", 4, 0), (1, 8, 131072, "direct", 1, 16), (1, 8, 131076, "direct", 1, 4),
+        (1, 8, 1048576, "direct", 1, 4), (0, 8, 128, "direct", 1, 4), (0, 8192, 128, "direct", 1, 4),
+        (1, 3, pmg.STAGE_MAX_FLOATS, "smem", 13, 0), (1, 3, pmg.STAGE_MAX_FLOATS + 4, "direct", 1, 16),
+        (1, 133, pmg.STAGE_MAX_FLOATS, "smem", 1, 0), (0, pmg.STAGE_MAX_FLOATS // 4, 4, "direct", 1, 4),
+    ])
+    def test_launch_the_wrapper_takes(self, axis, rows, cols, regime, parts, per):
+        assert pmg.take_along_axis_geometry(axis, rows, cols, 132) == pmg.Geometry(regime, parts, per)
+
+    @pytest.mark.parametrize("axis, rows, cols", [
+        (1, 64, 16384), (1, 128, 8192), (1, 8, 131072), (0, 8192, 128), (1, 133, 4100),
+    ])
+    def test_probe_shapes_on_the_card(self, axis, rows, cols):
+        """The H100's 132 SMs, at shapes the chip runs."""
+        held(axis, rows, cols, pmg.take_along_axis_geometry(axis, rows, cols, 132))
+
+    @pytest.mark.parametrize("per", [4, 8, 16])
+    @pytest.mark.parametrize("axis, rows, cols", [(1, 5, 12), (1, 7, 1040), (0, 33, 20), (0, 3, 4)])
+    def test_direct_at_each_count_a_thread(self, axis, rows, cols, per):
+        held(axis, rows, cols, pmg.Geometry("direct", per=per))
+
+    @pytest.mark.parametrize("parts", [1, 2, 3, 7, 13])
+    @pytest.mark.parametrize("rows, cols", [(1, 8), (2, 4100), (3, 9000)])
+    def test_smem_at_each_split_of_a_row(self, rows, cols, parts):
+        # More parts than float4 units leaves blocks with nothing to do.
+        held(1, rows, cols, pmg.Geometry("smem", parts=parts))
+
+    @pytest.mark.parametrize("seed", range(8))
+    def test_geometry_stays_within_the_kernels_limits(self, seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(200):
+            axis = int(rng.integers(0, 2))
+            rows = int(rng.integers(1, 20000))
+            cols = 4 * int(rng.integers(1, 300000))
+            sms = int(rng.integers(1, 200))
+            g = pmg.take_along_axis_geometry(axis, rows, cols, sms)
+            assert g.parts >= 1
+            if g.regime == "smem":
+                assert axis == 1 and pmg.SMEM_MIN_COLS < cols <= pmg.STAGE_MAX_FLOATS
+                assert g.per == 0 and rows * g.parts <= max(2 * sms, rows)
+                assert g.parts <= -(-cols // pmg.PART_MIN)
+            else:
+                assert g.regime == "direct" and g.parts == 1 and g.per in (4, 8, 16)
+
+    def test_constants_match_the_kernel_source(self):
+        src = K2_SOURCE.read_text()
+        assert f"kStageMaxFloats = {pmg.STAGE_MAX_FLOATS};" in src
+        assert f"kThreads = {THREADS_SMEM};" in src and f"kDirectThreads = {THREADS_DIRECT};" in src
+        r = pmg.REGIMES
+        assert f"enum Regime : int {{ kSmem = {r['smem']}, kDirect = {r['direct']} }};" in src
+        for per, units in ((4, 1), (8, 2), (16, 4)):
+            assert f"if (per == {per}) return launch_direct<{units}>" in src
+
+    def test_wrapper_takes_no_regime_of_the_callers(self):
+        table, idx = gather_inputs(1, 8, 16)
+        with pytest.raises(TypeError):
+            pmg.take_along_axis(t(table), t(idx), 1, regime="smem")
+
+
+# -- K3's tile walk, emulated --------------------------------------------------
+#
+# csrc/transpose2d.cu: block (x, y) of a (L / 32, R / 32) grid moves the 32 x
+# 32 tile at input rows 32 y.., columns 32 x.., through a tile padded to 33
+# columns, with 32 x 8 threads, each thread four elements a pass.
+
+TILE, ROWS_PER_PASS, PAD = 32, 8, 33
+
+
+def emulate_transpose(table):
+    """(out, writes per element) of the kernel's grid on ``table``."""
+    rows, cols = table.shape
+    out = np.full((cols, rows), np.nan, np.float32)
+    writes = np.zeros((cols, rows), np.int64)
+    tx, ty = np.meshgrid(np.arange(TILE), np.arange(ROWS_PER_PASS), indexing="xy")
+    for by in range(-(-rows // TILE)):
+        for bx in range(-(-cols // TILE)):
+            r0, c0 = by * TILE, bx * TILE
+            smem = np.full(TILE * PAD, np.nan, np.float32)
+            for j0 in range(0, TILE, ROWS_PER_PASS):  # loads: a warp reads one input row
+                j, r, c = j0 + ty, r0 + j0 + ty, c0 + tx
+                ok = (r < rows) & (c < cols)
+                smem[(j * PAD + tx)[ok]] = table[r[ok], c[ok]]
+            for j0 in range(0, TILE, ROWS_PER_PASS):  # stores: a warp writes one output row
+                j, c, r = j0 + ty, c0 + j0 + ty, r0 + tx
+                ok = (c < cols) & (r < rows)
+                np.add.at(writes, (c[ok], r[ok]), 1)
+                out[c[ok], r[ok]] = smem[(tx * PAD + j)[ok]]
+    return out, writes
+
+
+class TestTranspose2dSchedule:
+    @pytest.mark.parametrize("rows, cols", [
+        (33, 65), (1, 4), (4, 1), (65, 4097), (128, 8190), (100, 36), (4098, 128), (64, 64),
+        (300, 100),
+    ])
+    def test_grid_writes_each_element_once(self, rows, cols):
+        table = np.random.default_rng(rows + cols).random((rows, cols), dtype=np.float32)
+        out, writes = emulate_transpose(table)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(out, pmg.transpose2d_plain(t(table)).numpy())
+
+    def test_tile_accesses_are_free_of_bank_conflicts(self):
+        lanes = np.arange(TILE)
+        for j in range(TILE):
+            assert len(set((j * PAD + lanes) % 32)) == 32  # a warp stores one tile row
+            assert len(set((lanes * PAD + j) % 32)) == 32  # a warp reads one tile column
+
+    def test_constants_match_the_kernel_source(self):
+        src = K3_SOURCE.read_text()
+        for text in (f"kTile = {TILE};", f"kRowsPerPass = {ROWS_PER_PASS};",
+                     "tile[kTile][kTile + 1]"):
+            assert text in src
+        assert pmg._TRANSPOSE_MAX_ROWS == 65_535 * TILE
+
+
+class TestYardsticks:
+    def test_earlier_form_raises_on_cpu_tensors(self):
+        from protocol_tpu_torch.bench import yardsticks as ys
+
+        table, idx = gather_inputs(1, 8, 16)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            ys.take_along_axis_ldg(t(table), t(idx), 1)
+
+    def test_edge_checks_need_the_card(self, no_cuda):  # noqa: F811
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pmg.check_edges()
+        with pytest.raises(ValueError, match="on the card"):
+            pmg.check_edges("cpu")
+
+    def test_edges_cover_each_regimes_limits(self):
+        axis1 = {c for a, _, c in pmg.GATHER_EDGES if a == 1}
+        for limit in (1024, 2048, pmg.SMEM_MIN_COLS, pmg.STAGE_MAX_FLOATS, 131072):
+            assert {limit - 4, limit, limit + 4} <= axis1
+        rows1 = {r for a, r, c in pmg.GATHER_EDGES if a == 1 and c >= pmg.STAGE_MAX_FLOATS - 4}
+        assert min(rows1) < 132 < max(rows1)
+        taken = {pmg.take_along_axis_geometry(a, r, c, 132) for a, r, c in pmg.GATHER_EDGES}
+        assert {g.regime for g in taken} == set(pmg.REGIMES)
+        assert {g.per for g in taken} == {0, 4, 8, 16}
+        assert any(g.parts > 1 for g in taken)
+        assert {(33, 65), (1, 4), (4, 1), (65, 4097)} <= set(pmg.TRANSPOSE_EDGES)
+        assert any(c % 4 and r % 4 == 0 for r, c in pmg.TRANSPOSE_EDGES)
