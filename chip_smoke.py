@@ -7,7 +7,10 @@ Builds the port's CUDA kernels from the sources in this checkout, holds
 the windowed gather (K1) against its plain PyTorch version on the card,
 runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
-checks the result against the CSR formulation, holds the step's
+checks the result against the CSR formulation and the CSR formulation
+against the COO one (``cuda-sparse``, bit for bit), holds the edge
+gather-multiply of the CSR and COO steps (K9 ``gather_multiply``) at the
+headline's and the 65,536-peer graph's operands, holds the step's
 double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
 ``compensated_scan``, which scans the block totals it reads from K5's
 lanes), the row prefix and bridge (K7 ``prefix_bridge``) and the row
@@ -17,9 +20,11 @@ the shapes the windowed and the CSR step give them (K7 also on the
 also at 1, 3 and 8,200 blocks and past its two depth thresholds, and K8
 also at pointer counts about the end of a warp's tile), times
 the earlier forms of K6 and K8 (``protocol_tpu_torch.bench.yardsticks``)
-beside them and one empty launch, and holds the kernel route of both
-steps against their plain route, bit for bit.  Then the card against the CPU,
-and a churned epoch replay against a cold converge.  Last it runs the
+beside them and one empty launch, and holds the kernel route of the
+windowed, CSR and COO steps against their plain route, bit for bit.
+Then the card against the CPU, a churned epoch replay against a cold
+converge, and BASELINE ladder configs 1-3 through ``native-cpu``,
+``cuda-dense`` and ``cuda-sparse`` (``backends``).  Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
 versions and library calls bit for bit, with event and trace times, K2
@@ -28,10 +33,11 @@ beside its earlier form; then K2 and K3 at their edge shapes
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
-(per kernel: launches on its path — the headline converge for K1 and
-K5-K8, the probes phase for K2-K4 — and on the main path, agreement with
-the plain version, its time, the plain version's and the library call's
-times and the least time the card could take).  The last line is
+(per kernel: launches on its path — the windowed headline converge for
+K1 and K5-K8, the CSR headline converge for K9, the probes phase for
+K2-K4 — and on the main path, agreement with the plain version, its
+time, the plain version's and the library call's times and the least
+time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
 before that line.  Imports nothing of JAX
 or of the ``protocol_tpu`` reference package.
@@ -85,10 +91,12 @@ def main() -> None:
     from protocol_tpu_torch.bench import yardsticks as ys
     from protocol_tpu_torch.bench._timing import (
         F32_OPS_PER_S, REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
+        trace_ms,
     )
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
-    from protocol_tpu_torch.models.graphs import scale_free
+    from protocol_tpu_torch.models.graphs import erdos_renyi, scale_free
     from protocol_tpu_torch.ops import _build
+    from protocol_tpu_torch.ops import dense as dn
     from protocol_tpu_torch.ops import gather_window as gw
     from protocol_tpu_torch.ops import sparse as sp
     from protocol_tpu_torch.trust.backend import get_backend
@@ -193,14 +201,20 @@ def main() -> None:
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
         gw.gather_windowed, sp.ds_cumsum_axis1, sp.block_total_scan, gw.prefix_bridge,
-        sp.rowsum_tail, pmg.take_along_axis, pmg.transpose2d, pfp.gather_region,
+        sp.rowsum_tail, sp.gather_multiply, pmg.take_along_axis, pmg.transpose2d,
+        pfp.gather_region,
     )
-    for w in wrappers:
-        w.launches = 0
-    t0 = time.perf_counter()
-    scores = run_windowed()
-    seconds = time.perf_counter() - t0
-    main_launches = {w.__name__: w.launches for w in wrappers}
+
+    def counted(fn):
+        """``fn()``'s result, seconds and kernel launches: every count set
+        to 0 just before the call and read just after."""
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0, {w.__name__: w.launches for w in wrappers}
+
+    scores, seconds, main_launches = counted(run_windowed)
     launches = main_launches["gather_windowed"]
     peak = torch.cuda.max_memory_allocated()
     total = float(scores.astype(np.float64).sum())
@@ -218,29 +232,74 @@ def main() -> None:
 
     run_csr()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    csr_scores = run_csr()
-    csr_seconds = time.perf_counter() - t0
+    csr_scores, csr_seconds, csr_launches = counted(run_csr)
     l1_csr = float(np.abs(scores.astype(np.float64) - csr_scores).sum())
     emit(
         "headline", peers=g.n, edges=g.nnz, iterations=iters, plan_seconds=plan_seconds,
         n_rows=plan.n_rows, n_segments=plan.n_segments, seg_capacity=plan.seg_capacity,
         compression=plan.compression, seconds=seconds, ms_per_iter=seconds / iters * 1e3,
         max_memory_allocated=peak, k1_launches=launches, launches=main_launches,
-        sum_scores=total, csr_seconds=csr_seconds, l1_vs_csr=l1_csr,
+        sum_scores=total, csr_seconds=csr_seconds, csr_launches=csr_launches, l1_vs_csr=l1_csr,
     )
     # A windowed step runs K1 once, K7 once (the plan rows' prefix and the
     # bridge), K5 once (rowsum_sorted's blocks), K6 once (the block
-    # totals' scan) and K8 once (the pointer tail).
+    # totals' scan) and K8 once (the pointer tail); a CSR step K9 once
+    # (the edge product), then K5, K6 and K8 once each.
+    no_launch = dict.fromkeys((w.__name__ for w in wrappers), 0)
     expected = dict(
-        gather_windowed=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
+        no_launch, gather_windowed=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
         prefix_bridge=iters, rowsum_tail=iters,
-        take_along_axis=0, transpose2d=0, gather_region=0,
     )
     check(
         main_launches == expected,
         f"the {iters}-iteration converge launched {main_launches}, expected {expected}",
     )
+    expected_csr = dict(
+        no_launch, gather_multiply=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
+        rowsum_tail=iters,
+    )
+    check(
+        csr_launches == expected_csr,
+        f"the {iters}-iteration CSR converge launched {csr_launches}, expected {expected_csr}",
+    )
+
+    # cuda-sparse at the headline: the COO converge on the same dst-sorted
+    # edges derives the same row pointers on the card, then runs the CSR
+    # step, so its scores are the CSR converge's, bit for bit.
+    dst_d = torch.from_numpy(g.dst).to(dev)
+
+    def run_sparse():
+        t, _, _ = sp.converge_sparse(
+            src_d, dst_d, w_d, torch.from_numpy(p).to(dev), p_d, dang_d, n=g.n,
+            alpha=0.1, tol=0.0, max_iter=iters,
+        )
+        return t.cpu().numpy()
+
+    run_sparse()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sparse_scores, sparse_seconds, sparse_launches = counted(run_sparse)
+    sparse_peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    via_backend = get_backend("cuda-sparse").converge(graph, alpha=0.1, tol=0.0, max_iter=iters)
+    backend_seconds = time.perf_counter() - t0
+    sparse_equal = {
+        "converge_sparse": bool(np.array_equal(sparse_scores.view(np.uint32), csr_scores.view(np.uint32))),
+        "backend": bool(np.array_equal(via_backend.scores, csr_scores.astype(np.float64))),
+    }
+    emit(
+        "sparse_headline", peers=g.n, edges=g.nnz, iterations=iters, seconds=sparse_seconds,
+        ms_per_iter=sparse_seconds / iters * 1e3, csr_seconds=csr_seconds,
+        max_memory_allocated=sparse_peak, launches=sparse_launches,
+        backend_seconds=backend_seconds, backend_iterations=via_backend.iterations,
+        bit_equal_to_csr=sparse_equal,
+    )
+    check(all(sparse_equal.values()), f"cuda-sparse differs from cuda-csr at the headline: {sparse_equal}")
+    check(
+        sparse_launches == expected_csr,
+        f"the {iters}-iteration COO converge launched {sparse_launches}, expected {expected_csr}",
+    )
+    del via_backend
     check(abs(total - 1.0) < 1e-3, f"scores sum to {total}")
     check(bool(np.isfinite(scores).all()) and scores.shape == (g.n,), "non-finite or mis-shaped scores")
     check(l1_csr <= 1e-5, f"windowed vs CSR L1 {l1_csr} > 1e-5")
@@ -260,7 +319,41 @@ def main() -> None:
     run_ptr_seconds = time.perf_counter() - t0
     part = gw.prefix_bridge(slots, seg_end, seg_first, seg_perm, run_ptr)
     ct = sp.rowsum_sorted(part, dst_ptr)
-    contrib = w_d * t_d.index_select(0, src_d)
+    contrib = sp._gather_multiply(w_d, t_d, src_d)
+
+    def k9_vs_plain(w, x, src):
+        """K9 against its plain version (a difference raises).  Bytes:
+        src and w read and the product written (12 B an edge), the table
+        read once; operations: one multiply an edge.  The trace time is
+        the kernel's device time without the launch."""
+        e, n = src.shape[0], x.shape[0]
+        nbytes = 12 * e + 4 * n
+        res = kernel_vs_plain(
+            lambda: sp.gather_multiply(w, x, src), lambda: sp._gather_multiply(w, x, src),
+            wrapper=sp.gather_multiply, nbytes=nbytes, ops=e,
+        )
+        return dict(res, shape=[e], table=n, bound_by=bound_by(nbytes, e),
+                    trace_ms=trace_ms(lambda: sp.gather_multiply(w, x, src)))
+
+    # K9 at the CSR step's headline operands and at the 65,536-peer graph's.
+    x_small = torch.from_numpy(x_s / x_s.sum()).to(dev)
+    k9 = {
+        "headline": k9_vs_plain(w_d, t_d, src_d),
+        "small": k9_vs_plain(
+            torch.from_numpy(gs.weight).to(dev), x_small, torch.from_numpy(gs.src).to(dev)
+        ),
+    }
+    for where, rec in k9.items():
+        emit("kernel", kernel="gather_multiply", input=where, **rec)
+    # Slices at an odd element offset (4-byte aligned only) and an empty
+    # edge list go through the same kernel, bit for bit.
+    check(
+        same_bits(sp.gather_multiply(w_d[1:], t_d, src_d[1:]),
+                  sp._gather_multiply(w_d[1:], t_d, src_d[1:])),
+        "gather_multiply differs from its plain version on slices at an odd offset",
+    )
+    check(sp.gather_multiply(w_d[:0], t_d, src_d[:0]).shape == (0,), "gather_multiply of no edges")
+    del x_small
 
     # K5 and K6 at the shapes the two steps give them, bit for bit.
     block = sp._ROWSUM_BLOCK
@@ -493,7 +586,7 @@ def main() -> None:
         return sp.damp(sp.rowsum_sorted_plain(q, dst_ptr), t, p_d, dang_d, alpha)
 
     def csr_step_plain(t):
-        c = w_d * t.index_select(0, src_d)
+        c = sp._gather_multiply(w_d, t, src_d)
         return sp.damp(sp.rowsum_sorted_plain(c, ptr_d), t, p_d, dang_d, alpha)
 
     def windowed_step():
@@ -502,9 +595,13 @@ def main() -> None:
     def csr_step():
         return sp.power_step_csr(src_d, ptr_d, w_d, t_d, p_d, dang_d, alpha)
 
+    def coo_step():
+        return sp.power_step_coo(src_d, dst_d, w_d, t_d, p_d, dang_d, alpha, n=g.n)
+
     routes = {
         "windowed": same_bits(windowed_step(), windowed_step_plain(t_d)),
         "csr": same_bits(csr_step(), csr_step_plain(t_d)),
+        "coo": same_bits(coo_step(), csr_step_plain(t_d)),
     }
     emit("route_equality", **routes)
     check(all(routes.values()), f"kernel route differs from the plain route: {routes}")
@@ -523,7 +620,8 @@ def main() -> None:
         "whole_step": windowed_step,
         "whole_step_plain": lambda: windowed_step_plain(t_d),
         # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
-        "csr_gather_multiply": lambda: w_d * t_d.index_select(0, src_d),
+        "csr_gather_multiply": lambda: sp.gather_multiply(w_d, t_d, src_d),
+        "csr_gather_multiply_plain": lambda: sp._gather_multiply(w_d, t_d, src_d),
         "csr_block_total_scan": lambda: sp.block_total_scan(*tails["csr_blocks"][:2]),
         "csr_rowsum_tail": lambda: sp.rowsum_tail(*tails["csr_blocks"], ptr_d),
         "csr_rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["csr_blocks"], ptr_d),
@@ -531,6 +629,9 @@ def main() -> None:
         "csr_rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(contrib, ptr_d),
         "csr_whole_step": csr_step,
         "csr_whole_step_plain": lambda: csr_step_plain(t_d),
+        # The COO step: its dst segments (a host read of the order check),
+        # then the CSR step.
+        "coo_whole_step": coo_step,
     }
     passes = {"gather_k1": full["ms"]}
     passes.update({name: time_ms(fn, reps=10) for name, fn in step_fns.items()})
@@ -545,9 +646,10 @@ def main() -> None:
     # unprofiled wall time an iteration: 1 - busy / wall is the device's idle
     # share.  A measurement, not a check: where the trace holds no device
     # time, or the profiler fails, the line says "not measured".  Where it
-    # does, the check: the step's rowsum_sorted launches K5, K6 and K8 once
+    # does, the checks: the step's rowsum_sorted launches K5, K6 and K8 once
     # each and nothing else (K6 reads the block totals from the lanes, so no
-    # PyTorch add builds them).
+    # PyTorch add builds them), and the CSR step launches K9 once, the
+    # windowed step never.
     profiles = {}
     rowsum_kernels = ("ds_cumsum_rows_kernel", "compensated_scan_kernel", "rowsum_tail_kernel")
     for name, fn, wall_ms, rowsum in (
@@ -565,19 +667,25 @@ def main() -> None:
             profiles[name] = {"busy_ms": "not measured", "error": "no device events in the trace"}
             continue
         busy = sum(by_name.values())
+        k9_a_step = sum(c for kn, c in step_launches.items() if "gather_multiply_kernel" in kn)
         profiles[name] = {
             "busy_ms": busy, "wall_ms_per_iter": wall_ms, "idle_share": 1.0 - busy / wall_ms,
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
             "kernels_a_step": sum(step_launches.values()),
+            "gather_multiply_a_step": k9_a_step,
             "rowsum_sorted_kernels": rowsum_launches,
         }
+        check(
+            k9_a_step == (1.0 if name == "csr" else 0.0),
+            f"the {name} step launched gather_multiply {k9_a_step} times a step",
+        )
         check(
             sorted(rowsum_launches.values()) == [1.0, 1.0, 1.0]
             and all(any(k in kn for kn in rowsum_launches) for k in rowsum_kernels),
             f"the {name} step's rowsum_sorted launched {rowsum_launches}, not K5, K6 and K8 once each",
         )
     emit("step_profile", **profiles)
-    del out, slots, part, ct, step_fns, src_d, ptr_d, w_d, contrib, tails, run_ptr
+    del out, slots, part, ct, step_fns, src_d, ptr_d, w_d, dst_d, contrib, tails, run_ptr
 
     def step_entry(name, wrapper, source, replaces, runs, main, **more):
         """A ``kernels`` entry for a kernel of the step: the main path's
@@ -597,6 +705,8 @@ def main() -> None:
             "path": "headline",
             "launches": main_launches[wrapper],
             "main_path_launches": main_launches[wrapper],
+            "csr_path_launches": csr_launches[wrapper],
+            "sparse_path_launches": sparse_launches[wrapper],
             "shape": runs[main]["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in runs.values()),
             "ms": runs[main]["ms"],
@@ -715,7 +825,66 @@ def main() -> None:
     check(warm_vs_cold <= 1e-4, f"warm vs cold L1 {warm_vs_cold} > 1e-4")
     del b, cold, cur
 
-    # -- 7. probes: K2-K4 at the reference probes' shapes ------------------
+    # -- 7. backends: BASELINE ladder configs 1-3 (bench.py:410-449) --------
+    ladder = {}
+    # Config 1: the 5-peer bootstrap set scoring each other alike, exact.
+    ops1 = np.full((5, 5), 200.0, np.float32)
+    np.fill_diagonal(ops1, 0.0)
+    t0 = time.perf_counter()
+    res1 = get_backend("native-cpu").converge(
+        TrustGraph.from_dense(ops1), alpha=0.0, tol=0.0, max_iter=10
+    )
+    ladder["1-native-cpu-5"] = dict(
+        seconds=time.perf_counter() - t0, iterations=res1.iterations,
+        max_dev_from_uniform=float(np.abs(res1.scores - 0.2).max()),
+    )
+    check(res1.iterations == 10 and np.allclose(res1.scores, 0.2, atol=1e-12),
+          f"native-cpu on the uniform 5-peer set gave {res1.scores}")
+    # Configs 2 and 3 through cuda-dense and cuda-sparse, each held against
+    # cuda-csr on the same graph at the reference's cross-backend tolerance.
+    kw7 = dict(alpha=0.1, tol=0.0, max_iter=40)
+    for key, name, make in (
+        ("2-cuda-dense-10k", "cuda-dense", lambda: erdos_renyi(10_000, avg_degree=100.0, seed=11)),
+        ("3-cuda-sparse-100k", "cuda-sparse", lambda: scale_free(100_000, 2_000_000, seed=13)),
+    ):
+        gk = make()
+        b = get_backend(name)
+        b.converge(gk, **kw7)  # warm-up: kernel load, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, secs, k_launches = counted(lambda: b.converge(gk, **kw7))
+        ref = get_backend("cuda-csr").converge(gk, **kw7)
+        ladder[key] = dict(
+            peers=gk.n, edges=gk.nnz, seconds=secs, iterations=res.iterations,
+            max_memory_allocated=torch.cuda.max_memory_allocated(), launches=k_launches,
+            max_abs_vs_csr=float(np.abs(res.scores - ref.scores).max()),
+            bit_equal_to_csr=bool(np.array_equal(res.scores, ref.scores)),
+        )
+        check(res.iterations == 40 and bool(np.isfinite(res.scores).all()),
+              f"{name} ran {res.iterations} iterations or gave non-finite scores")
+        check(np.allclose(res.scores, ref.scores, rtol=1e-3, atol=1e-8),
+              f"{name} differs from cuda-csr beyond rtol 1e-3, atol 1e-8")
+        del gk, b, res, ref
+    # The dense steps are matrix-vector products, which cuBLAS runs without
+    # TF32: a converge with TF32 allowed equals one without, bit for bit.
+    gen.manual_seed(11)
+    m = torch.rand((10_000, 10_000), generator=gen, device=dev)
+    m /= m.sum(dim=0, keepdim=True)
+    s0 = torch.full((10_000,), 1e-4, device=dev)
+    tf32_was = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        no_tf32 = dn.converge_dense(m, s0, 40)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with_tf32 = dn.converge_dense(m, s0, 40)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32_was
+    ladder["dense_tf32_allowed_bit_equal"] = same_bits(no_tf32, with_tf32)
+    emit("backends", nvidia_smi=smi, **ladder)
+    check(ladder["dense_tf32_allowed_bit_equal"], "converge_dense changed when TF32 was allowed")
+    del m, s0, no_tf32, with_tf32
+
+    # -- 8. probes: K2-K4 at the reference probes' shapes ------------------
     # Each run() holds every kernel launch against its plain version (and
     # its library call, where there is one) bit for bit and raises on a
     # difference; each measured shape launches its kernel 1 + WARMUP + REPS
@@ -779,6 +948,43 @@ def main() -> None:
     edges = pmg.check_edges()
     emit("probe_edges", seconds=time.perf_counter() - t0, **edges)
 
+    # K9, beside its second bound: the random 4-byte reads of the table at
+    # the rate this run's K2 read a 4 MB row at random from L2 (its trace
+    # time at (8, 1048576), else its event time).
+    k2_row = next(r for r in records
+                  if r.get("kernel") == "take_along_axis" and r["shape"] == [8, 1_048_576])
+    k2_ms = k2_row.get("trace_ms") or k2_row["ms"]
+    l2_reads_per_ms = 8 * 1_048_576 / k2_ms
+    head = k9["headline"]
+    kernels.append(
+        {
+            "name": "gather_multiply",
+            "wrapper": "gather_multiply",
+            "route": "cuda",
+            "source": "protocol_tpu_torch/ops/csrc/gather_multiply.cu",
+            "replaces": "protocol_tpu/ops/sparse.py:147 + :257",
+            "path": "csr_headline",
+            "launches": csr_launches["gather_multiply"],
+            "main_path_launches": main_launches["gather_multiply"],
+            "csr_path_launches": csr_launches["gather_multiply"],
+            "sparse_path_launches": sparse_launches["gather_multiply"],
+            "shape": head["shape"],
+            "max_abs_err": max(r["max_abs_err"] for r in k9.values()),
+            "ms": head["ms"],
+            "trace_ms": head["trace_ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "bound_ms_l2_reads": head["shape"][0] / l2_reads_per_ms,
+            "l2_reads_gelem_per_s": l2_reads_per_ms / 1e6,
+            "shapes": {
+                where: {k: r[k] for k in ("shape", "table", "ms", "trace_ms", "plain_ms",
+                                          "bound_ms", "bytes", "max_abs_err")}
+                for where, r in k9.items()
+            },
+        }
+    )
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -5,10 +5,13 @@ reference) to an NVIDIA H100.  Structure and names mirror the
 reference so each counterpart is easy to find:
 
 - ``trust``   — ``TrustGraph`` and the backend registry
-  (``cuda-csr``, ``cuda-windowed``).
-- ``ops``     — the power iteration, the CSR step, the host-built
-  ``WindowPlan`` and the windowed step on the hand-written CUDA gather
-  kernel (``ops/csrc/gather_window.cu``).
+  (``native-cpu``, ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``,
+  ``cuda-windowed``).
+- ``ops``     — the power iteration, the dense, COO and CSR steps (the
+  edge product on the hand-written CUDA kernel
+  ``ops/csrc/gather_multiply.cu``), the host-built ``WindowPlan`` and
+  the windowed step on the hand-written CUDA gather kernel
+  (``ops/csrc/gather_window.cu``).
 - ``models``  — graph and churn generators and ``EigenTrustModel``.
 - ``bench``   — the reference's gather/transpose probes on the card,
   with their hand-written CUDA kernels (``ops/csrc/take_along_axis.cu``,

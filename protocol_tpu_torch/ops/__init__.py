@@ -1,6 +1,8 @@
-"""PyTorch trust steps: the CSR step, the power-iteration loop, and the
-fused windowed pipeline on the hand-written CUDA gather kernel."""
+"""PyTorch trust steps: dense, sparse (COO and CSR), the power-iteration
+loop, and the fused windowed pipeline on the hand-written CUDA gather
+kernel."""
 
+from .dense import converge_dense, filter_and_normalize, set_converge_dense  # noqa: F401
 from .gather_window import (  # noqa: F401
     PLAN_VERSION,
     WindowPlan,
@@ -16,4 +18,12 @@ from .gather_window import (  # noqa: F401
     row_run_ptr,
     windowed_ct,
 )
-from .sparse import converge_csr, power_step_csr, rowsum_sorted, run_power_iteration  # noqa: F401
+from .sparse import (  # noqa: F401
+    converge_csr,
+    converge_sparse,
+    gather_multiply,
+    power_step_coo,
+    power_step_csr,
+    rowsum_sorted,
+    run_power_iteration,
+)

@@ -77,6 +77,11 @@ SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # (w, t, src, out, e, n, stream)
+    "gather_multiply": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     # Yardsticks (bench/csrc).  (x, hi, lo, scratch, n, stream)
     "compensated_scan_global": (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],
@@ -179,11 +184,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def operand_device(name: str, **operands: torch.Tensor) -> torch.device:
+def operand_device(name: str, *, align: int = 16, **operands: torch.Tensor) -> torch.device:
     """The one device that kernel ``name``'s operands share: ``cpu``
     (the wrapper then takes the plain version) or ``cuda``, where every
-    operand must also be contiguous and 16-byte aligned.  Mixed or other
-    devices raise: there is no silent fallback."""
+    operand must also be contiguous and ``align``-byte aligned (16 for
+    the kernels' vector loads; a kernel of 4-byte accesses takes 4).
+    Mixed or other devices raise: there is no silent fallback."""
     devices = {a.device for a in operands.values()}
     if len(devices) != 1:
         raise ValueError(f"{name}: operands must share one device, got {sorted(map(str, devices))}")
@@ -192,8 +198,8 @@ def operand_device(name: str, **operands: torch.Tensor) -> torch.device:
         raise ValueError(f"{name} runs on cpu or cuda, not {device.type}")
     if device.type == "cuda":
         for arg, a in operands.items():
-            if not a.is_contiguous() or a.data_ptr() % 16:
-                raise ValueError(f"{name}: {arg} must be contiguous and 16-byte aligned")
+            if not a.is_contiguous() or a.data_ptr() % align:
+                raise ValueError(f"{name}: {arg} must be contiguous and {align}-byte aligned")
     return device
 
 

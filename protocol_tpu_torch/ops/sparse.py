@@ -1,22 +1,29 @@
 """Sparse trust steps on PyTorch: the double-single prefix machinery,
-the gather-only CSR step and the shared power-iteration loop.
+the gather-only CSR step, the COO step over it and the shared
+power-iteration loop.
 
 Port of ``protocol_tpu/ops/sparse.py``.  One damped power step is
 
     t' = (1−α)·(Cᵀt + (Σ_{i dangling} t_i)·p) + α·p,   t' ← t' / Σ t'
 
-Everything up to ``Cᵀt`` repeats the reference's arithmetic op for op,
-so the prefix sums and row sums are bit-identical to the JAX package
+Everything up to ``Cᵀt`` repeats the reference's CSR arithmetic op for
+op, so the prefix sums and row sums are bit-identical to the JAX package
 (tests/test_torch_kernels.py); only the epilogue's two ``sum``
 reductions may run in another order.  None of these passes is a Pallas
-kernel in the reference (they are jit'd XLA).  ``rowsum_sorted``'s three
-passes run as hand-written CUDA kernels on a card, with the same op
-order: ``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``),
-``block_total_scan`` (``csrc/compensated_scan.cu``, which reads the
-block totals from the prefix lanes itself) and ``rowsum_tail``
-(``csrc/rowsum_tail.cu``); their plain versions ``_ds_cumsum_axis1``,
-``_block_total_scan`` and ``_rowsum_tail`` serve CPU tensors.  The CSR gather-multiply and the epilogue stay plain
-PyTorch; the times on the card are in PERF.md.
+kernel in the reference (they are jit'd XLA).  On a card the edge
+product ``w · t[src]`` runs as ``gather_multiply``
+(``csrc/gather_multiply.cu``) and ``rowsum_sorted``'s three passes as
+``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``), ``block_total_scan``
+(``csrc/compensated_scan.cu``, which reads the block totals from the
+prefix lanes itself) and ``rowsum_tail`` (``csrc/rowsum_tail.cu``),
+all hand-written CUDA with the same op order; their plain versions
+``_gather_multiply``, ``_ds_cumsum_axis1``, ``_block_total_scan`` and
+``_rowsum_tail`` serve CPU tensors.  The COO step sums over ``dst``
+with the same ``rowsum_sorted`` on pointers derived from the dst order
+(``dst_segments``), not with a scatter: its sums are double-single where
+the reference's ``segment_sum`` is float32, so COO scores agree with the
+reference within its cross-backend tolerance, not bit for bit.  The
+epilogue stays plain PyTorch; the times on the card are in PERF.md.
 """
 
 from __future__ import annotations
@@ -331,6 +338,50 @@ def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan, tail) -> torch.Tensor:
     return tail(wh, wl, hi_in, lo_in, row_ptr)
 
 
+def _gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``gather_multiply``: ``w * t[src]``."""
+    return w * t.index_select(0, src)
+
+
+def gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The edge product ``w[e] * t[src[e]]`` of contiguous 1-D float32
+    ``w`` and ``t`` and int32 ``src`` (one entry an edge).
+
+    On CUDA tensors this launches ``csrc/gather_multiply.cu`` (K9: one
+    IEEE multiply an edge, so bit-equal to the plain version; a gathered
+    index is clamped to the table, as XLA clamps) and adds one to
+    ``gather_multiply.launches``; a launch the card refuses raises.  On
+    CPU tensors it is the plain version.  Mixed or other devices raise."""
+    for name, a, dtype in (("w", w, torch.float32), ("t", t, torch.float32),
+                           ("src", src, torch.int32)):
+        if a.dim() != 1:
+            raise ValueError(f"gather_multiply: {name} must be 1-D, got shape {tuple(a.shape)}")
+        if a.dtype != dtype:
+            raise TypeError(f"gather_multiply: {name} must be {dtype}, got {a.dtype}")
+    if src.shape != w.shape:
+        raise ValueError(
+            f"gather_multiply: src has shape {tuple(src.shape)}, w {tuple(w.shape)}"
+        )
+    if w.numel() and not t.numel():
+        raise ValueError("gather_multiply: edges need a non-empty table")
+    # 4-byte accesses only: any slice of a tensor is taken as it is.
+    device = _build.operand_device("gather_multiply", align=4, w=w, t=t, src=src)
+    if device.type == "cpu":
+        return _gather_multiply(w, t, src)
+    out = w.new_empty(w.shape)
+    if w.numel():
+        _build.launch(
+            "gather_multiply", device, w.data_ptr(), t.data_ptr(), src.data_ptr(),
+            out.data_ptr(), w.numel(), t.numel(),
+        )
+        gather_multiply.launches += 1
+    return out
+
+
+#: Kernel launches in this process (the plain version does not count).
+gather_multiply.launches = 0  # type: ignore[attr-defined]
+
+
 def damp(
     ct: torch.Tensor,
     t: torch.Tensor,
@@ -356,8 +407,58 @@ def power_step_csr(
 ) -> torch.Tensor:
     """One damped step in the gather-only CSR formulation:
     ``cᵀt[j] = rowsum_sorted(w · t[src], row_ptr)``."""
-    ct = rowsum_sorted(w * t.index_select(0, src), row_ptr)
+    ct = rowsum_sorted(gather_multiply(w, t, src), row_ptr)
     return damp(ct, t, p, dangling, alpha)
+
+
+def dst_segments(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    n: int,
+    sorted_by_dst: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(src, w, row_ptr)`` of the COO edge list in dst order, on the
+    edges' device: ``row_ptr[j] .. row_ptr[j+1]`` is the range of the
+    edges whose destination is j (int32, ``n + 1`` pointers), the input
+    to ``power_step_csr``.
+
+    With ``sorted_by_dst`` the edges are taken in the given order once
+    one pass over ``dst`` (a host read) finds it non-decreasing; where
+    it is not, as when zero-weight padding edges carry any ``dst``, and
+    with ``sorted_by_dst=False``, they are put in order by one stable
+    sort of ``dst`` (the order ``TrustGraph.sorted_by_dst`` gives).  A
+    ``dst`` outside ``[0, n)`` falls outside every segment and is
+    dropped, as ``segment_sum`` drops it."""
+    if sorted_by_dst and bool(torch.all(dst[1:] >= dst[:-1])):
+        dst_sorted = dst
+    else:
+        dst_sorted, order = torch.sort(dst, stable=True)
+        src, w = src.index_select(0, order), w.index_select(0, order)
+    bounds = torch.arange(n + 1, dtype=dst.dtype, device=dst.device)
+    row_ptr = torch.searchsorted(dst_sorted, bounds, out_int32=True)
+    return src, w, row_ptr
+
+
+def power_step_coo(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    w: torch.Tensor,
+    t: torch.Tensor,
+    p: torch.Tensor,
+    dangling: torch.Tensor,
+    alpha: torch.Tensor | float,
+    *,
+    n: int,
+    sorted_by_dst: bool = True,
+) -> torch.Tensor:
+    """One damped transpose-SpMV step over a COO edge list (edge arrays
+    may be zero-padded: pad edges with w=0): the edges' dst segments
+    (``dst_segments``), then the CSR step over them, so ``Cᵀt`` is a
+    sorted double-single segmented sum and no scatter runs."""
+    src, w, row_ptr = dst_segments(src, dst, w, n=n, sorted_by_dst=sorted_by_dst)
+    return power_step_csr(src, row_ptr, w, t, p, dangling, alpha)
 
 
 def run_power_iteration(
@@ -427,4 +528,30 @@ def converge_csr(
         tol=tol,
         max_iter=max_iter,
         record_residuals=record_residuals,
+    )
+
+
+def converge_sparse(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    w: torch.Tensor,
+    t0: torch.Tensor,
+    p: torch.Tensor,
+    dangling: torch.Tensor,
+    *,
+    n: int,
+    alpha: torch.Tensor | float = 0.1,
+    tol: float = 1e-6,
+    max_iter: int = 50,
+    sorted_by_dst: bool = True,
+    record_residuals: bool = False,
+) -> tuple:
+    """COO convergence; returns ``(t, iterations, residual[, history])``
+    as ``converge_csr``.  The dst segments are derived once, before the
+    loop (``dst_segments``), and every step is then ``power_step_coo``'s
+    CSR step over them."""
+    src, w, row_ptr = dst_segments(src, dst, w, n=n, sorted_by_dst=sorted_by_dst)
+    return converge_csr(
+        src, row_ptr, w, t0, p, dangling,
+        alpha=alpha, tol=tol, max_iter=max_iter, record_residuals=record_residuals,
     )

@@ -1,8 +1,13 @@
 """TrustBackend on PyTorch — the port's execution backends.
 
-Port of ``protocol_tpu/trust/backend.py`` for the backends of this
-slice:
+Port of ``protocol_tpu/trust/backend.py``'s single-device ladder:
 
+- ``native-cpu``     exact rational dense power iteration on the host
+  (``fractions.Fraction``): the parity oracle, a CPU backend by name.
+- ``cuda-dense``     dense matrix-vector power iteration in chunks of 8
+  with a host residual check between them (``ops.dense.converge_dense``).
+- ``cuda-sparse``    COO SpMV (``ops.sparse.converge_sparse``): the CSR
+  step over the edges' dst segments, derived on the device.
 - ``cuda-csr``       gather-only CSR / compensated-cumsum SpMV
   (``ops.sparse.converge_csr``).
 - ``cuda-windowed``  the fused fixed-slot pipeline on the hand-written
@@ -10,13 +15,15 @@ slice:
   the host-built ``WindowPlan`` cached and revalidated by graph
   fingerprint, delta-updated from a churn hint, or rebuilt.
 
-Each backend runs on ``device``: ``None`` means CUDA and raises where
-there is no card; ``device="cpu"`` runs the plain versions (the tests).
+Each backend but ``native-cpu`` runs on ``device``: ``None`` means CUDA
+and raises where there is no card; ``device="cpu"`` runs the plain
+versions (the tests).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -30,7 +37,8 @@ from ..ops.gather_window import (
     graph_fingerprint,
     try_plan_delta,
 )
-from ..ops.sparse import converge_csr
+from ..ops.dense import converge_dense
+from ..ops.sparse import converge_csr, converge_sparse
 from .graph import TrustGraph
 
 
@@ -114,6 +122,150 @@ class TrustBackend:
         t0: np.ndarray | None = None,
     ) -> ConvergenceResult:
         raise NotImplementedError
+
+
+class NativeCPUBackend(TrustBackend):
+    """Exact rational dense power iteration on the host — small sets only.
+
+    With ``alpha=0`` and ``max_iter=I`` this is the reference kernel
+    modulo normalisation: it iterates the row-normalised matrix exactly
+    like ``native()`` iterates the SCALE-summing ops matrix
+    (circuit/src/circuit.rs:434-454), with dangling rows redirected to
+    the pre-trust vector.  It runs on the CPU by name and never asks for
+    the card."""
+
+    name = "native-cpu"
+
+    def __init__(self):
+        self.device = torch.device("cpu")
+
+    def converge(self, graph, *, alpha=0.0, tol=1e-6, max_iter=50,
+                 record_residuals=True, t0=None):
+        g = graph.drop_self_edges()
+        dense = g.to_dense()
+        n = g.n
+        # Exact pre-trust vector (the float pre_trust_vector() is this
+        # same distribution rounded to f32).
+        if graph.pre_trusted is not None and graph.pre_trusted.any():
+            cnt = int(graph.pre_trusted.sum())
+            p = [
+                Fraction(1, cnt) if graph.pre_trusted[i] else Fraction(0)
+                for i in range(n)
+            ]
+        else:
+            p = [Fraction(1, n)] * n
+        # Exact rational row-normalised matrix with dangling → p.
+        rows: list[list[Fraction]] = []
+        row_sums = dense.sum(axis=1)
+        for i in range(n):
+            if row_sums[i] <= 0:
+                rows.append([p[j] for j in range(n)])
+            else:
+                s = Fraction(row_sums[i])
+                rows.append([Fraction(dense[i][j]) / s for j in range(n)])
+        a = Fraction(alpha).limit_denominator(10**9)
+        # Warm start: rationalise the seed exactly like alpha; the
+        # fixed point is start-independent, only the path shortens.
+        pf = np.array([float(x) for x in p], dtype=np.float32)
+        start = _initial_vector(t0, pf)
+        if start is pf:
+            t = list(p)
+        else:
+            raw = [Fraction(float(x)).limit_denominator(10**12) for x in start]
+            s = sum(raw)
+            t = [x / s for x in raw] if s > 0 else list(p)
+        it = 0
+        resid = Fraction(0)
+        history: list[float] = []
+        for it in range(1, max_iter + 1):
+            new_t = [
+                (1 - a) * sum(rows[j][i] * t[j] for j in range(n)) + a * p[i]
+                for i in range(n)
+            ]
+            resid = sum(abs(x - y) for x, y in zip(new_t, t))
+            if record_residuals:
+                history.append(float(resid))
+            t = new_t
+            if tol > 0 and resid < tol:
+                break
+        return ConvergenceResult(
+            scores=np.array([float(x) for x in t], dtype=np.float64),
+            iterations=it,
+            residual=float(resid),
+            backend=self.name,
+            residuals=np.array(history) if record_residuals else None,
+        )
+
+
+class DenseTorchBackend(TrustBackend):
+    """Dense matrix-vector power iteration (``ops.dense.converge_dense``)
+    over the host-built damped matrix, for sets up to ~10k peers."""
+
+    name = "cuda-dense"
+
+    def converge(self, graph, *, alpha=0.0, tol=1e-6, max_iter=50,
+                 record_residuals=True, t0=None):
+        g = graph.drop_self_edges()
+        dense = g.to_dense().astype(np.float32)
+        row_sums = dense.sum(axis=1)
+        p = graph.pre_trust_vector().astype(np.float32)
+        dangling = row_sums <= 0
+        norm = np.where(dangling[:, None], p[None, :], dense / np.where(dangling, 1.0, row_sums)[:, None])
+        m = (1.0 - alpha) * norm.T + alpha * np.outer(p, np.ones(g.n, np.float32))
+        dev = self.device
+        t = torch.from_numpy(np.ascontiguousarray(_initial_vector(t0, p))).to(dev)
+        m = torch.from_numpy(m.astype(np.float32)).to(dev)
+        it = 0
+        resid = np.inf
+        history: list[float] = []
+        # Fixed-size chunks with host-side residual checks between them,
+        # as the reference runs compiled scan chunks: the residual
+        # trajectory is chunk-granular here (one entry per host check).
+        chunk = 8 if tol > 0 else max_iter
+        while it < max_iter:
+            steps = min(chunk, max_iter - it)
+            t_new = converge_dense(m, t, steps)
+            t_new = t_new / torch.sum(t_new)
+            resid = float(torch.sum(torch.abs(t_new - t)))
+            if record_residuals:
+                history.append(resid)
+            t = t_new
+            it += steps
+            if tol > 0 and resid < tol:
+                break
+        return ConvergenceResult(
+            scores=t.cpu().numpy().astype(np.float64),
+            iterations=it,
+            residual=resid,
+            backend=self.name,
+            residuals=np.array(history) if record_residuals else None,
+        )
+
+
+class SparseTorchBackend(TrustBackend):
+    """COO SpMV (``ops.sparse.converge_sparse``) over the dst-sorted,
+    row-normalised edge list."""
+
+    name = "cuda-sparse"
+
+    def converge(self, graph, *, alpha=0.0, tol=1e-6, max_iter=50,
+                 record_residuals=True, t0=None):
+        g = graph.drop_self_edges()
+        w, dangling = g.row_normalized()
+        g = TrustGraph(g.n, g.src, g.dst, w, graph.pre_trusted).sorted_by_dst()
+        dev = self.device
+        out = converge_sparse(
+            torch.from_numpy(g.src).to(dev),
+            torch.from_numpy(g.dst).to(dev),
+            torch.from_numpy(g.weight).to(dev),
+            *self._vectors(graph, dangling, t0),
+            n=g.n,
+            alpha=alpha,
+            tol=tol,
+            max_iter=max_iter,
+            record_residuals=record_residuals,
+        )
+        return _result(out, self.name, record_residuals)
 
 
 class CsrTorchBackend(TrustBackend):
@@ -202,6 +354,9 @@ class WindowedTorchBackend(TrustBackend):
 
 
 _BACKENDS = {
+    "native-cpu": NativeCPUBackend,
+    "cuda-dense": DenseTorchBackend,
+    "cuda-sparse": SparseTorchBackend,
     "cuda-csr": CsrTorchBackend,
     "cuda-windowed": WindowedTorchBackend,
 }
@@ -213,8 +368,9 @@ def registered_backends() -> list[str]:
 
 
 def get_backend(name: str, **kwargs) -> TrustBackend:
-    """Construct a backend by name; ``device`` (default: the card) and
-    the backend's own arguments pass through."""
+    """Construct a backend by name; ``device`` (default: the card; not
+    taken by ``native-cpu``) and the backend's own arguments pass
+    through."""
     try:
         cls = _BACKENDS[name]
     except KeyError:

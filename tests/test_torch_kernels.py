@@ -5,13 +5,20 @@ each is held **bit-identical** (``np.array_equal``) to its JAX
 counterpart on the same numpy inputs: the windowed gather's plain
 version against the Pallas kernel in interpret mode, the double-single
 prefix, the compensated scan, ``rowsum_sorted``, ``bridge_partials`` and
-``windowed_ct``.  The damping epilogue sums in another order, so the
-CSR step is held to a float32 tolerance instead (the whole windowed
-step is held through the converge, tests/test_torch_converge.py).
+``windowed_ct``, and the CSR and COO steps' edge product ``w * t[src]``
+(K9's plain version, on uint32 views, so -0.0 differs from +0.0).  The
+damping epilogue sums in another order, so the CSR step is held to a
+float32 tolerance instead (the whole windowed step is held through the
+converge, tests/test_torch_converge.py).  The COO step is the CSR step
+over the edges' dst segments: it is held to the reference's CSR step on
+those segments at the same tolerance, and to the reference's COO step,
+whose ``segment_sum`` sums in float32 where the port sums in
+double-single, at the cross-backend tolerance (rtol 1e-3, atol 1e-8).
 
-The CUDA kernel itself runs only on a card; ``chip_smoke.py`` holds it
-against the plain version there.  Here the wrapper's CPU route, its
-launch counter and its argument checks are covered.
+The CUDA kernels themselves (K1 ``gather_windowed``, K9
+``gather_multiply``) run only on a card; ``chip_smoke.py`` holds them
+against their plain versions there.  Here the wrappers' CPU route, their
+launch counters and their argument checks are covered.
 """
 
 import numpy as np
@@ -36,6 +43,8 @@ j_rowsum = jax.jit(jsp.rowsum_sorted)
 j_bridge = jax.jit(jgw.bridge_partials)
 j_windowed_ct = jax.jit(jgw.windowed_ct, static_argnames=("n_rows", "table_entries", "interpret"))
 j_step_csr = jax.jit(jsp.power_step_csr)
+j_gather_multiply = jax.jit(lambda w, x, src: w * x[src])
+j_step_coo = jax.jit(jsp.power_step_coo, static_argnames=("n", "sorted_by_dst"))
 
 
 def t(a):
@@ -44,6 +53,13 @@ def t(a):
 
 def same(port, ref) -> None:
     np.testing.assert_array_equal(np.asarray(port), np.asarray(ref))
+
+
+def same_bits(port, ref) -> None:
+    """Equal float32 bit patterns: -0.0 differs from +0.0."""
+    np.testing.assert_array_equal(
+        np.asarray(port, np.float32).view(np.uint32), np.asarray(ref, np.float32).view(np.uint32)
+    )
 
 
 @pytest.fixture(scope="module")
@@ -199,3 +215,146 @@ class TestWindowedStep:
         ]
         for a, k in zip(args, tgw.WindowPlan._CORE):
             same(a, getattr(plan, k))
+
+
+def edge_operands(e: int, n: int, seed: int):
+    """Random ``(w, x, src)`` for the edge product, with signed zeros
+    planted on both sides (their products' signs must survive)."""
+    rng = np.random.default_rng(seed)
+    w = rng.standard_normal(e).astype(np.float32)
+    x = rng.standard_normal(n).astype(np.float32)
+    src = rng.integers(0, n, e).astype(np.int32)
+    w[::7] = -0.0
+    x[::5] = 0.0
+    return w, x, src
+
+
+class TestGatherMultiply:
+    @pytest.mark.parametrize("e, n", [(0, 5), (1, 1), (3, 7), (1021, 300), (30_001, 2500)])
+    def test_plain_matches_reference_bits(self, e, n):
+        w, x, src = edge_operands(e, n, seed=e + n)
+        same_bits(tsp._gather_multiply(t(w), t(x), t(src)), j_gather_multiply(w, x, src))
+
+    def test_wrapper_takes_plain_route_on_cpu_without_counting(self):
+        w, x, src = map(t, edge_operands(5001, 400, seed=1))
+        before = tsp.gather_multiply.launches
+        out = tsp.gather_multiply(w, x, src)
+        assert tsp.gather_multiply.launches == before
+        same_bits(out, tsp._gather_multiply(w, x, src))
+        # A slice at any element offset is taken as it is.
+        same_bits(tsp.gather_multiply(w[1:], x, src[1:]), tsp._gather_multiply(w[1:], x, src[1:]))
+
+    @pytest.mark.parametrize(
+        "mutate, exc",
+        [
+            (lambda a: dict(a, w=a["w"].double()), TypeError),
+            (lambda a: dict(a, x=a["x"].double()), TypeError),
+            (lambda a: dict(a, src=a["src"].long()), TypeError),
+            (lambda a: dict(a, src=a["src"][:-1]), ValueError),
+            (lambda a: dict(a, w=a["w"].reshape(4, 2)), ValueError),
+            (lambda a: dict(a, x=a["x"][:0]), ValueError),
+            (lambda a: dict(a, x=a["x"].to("meta")), ValueError),
+        ],
+        ids=["w-dtype", "t-dtype", "src-dtype", "src-shape", "w-2d", "empty-table", "mixed-device"],
+    )
+    def test_rejects_bad_operands(self, mutate, exc):
+        a = mutate(dict(w=torch.zeros(8), x=torch.zeros(4), src=torch.zeros(8, dtype=torch.int32)))
+        with pytest.raises(exc):
+            tsp.gather_multiply(a["w"], a["x"], a["src"])
+
+    def test_meta_tensors_raise_instead_of_falling_back(self):
+        meta = dict(device="meta")
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            tsp.gather_multiply(
+                torch.zeros(8, **meta), torch.zeros(4, **meta),
+                torch.zeros(8, dtype=torch.int32, **meta),
+            )
+
+
+def coo_layout(g, layout: str, seed: int = 0):
+    """``(src, dst, w, sorted_by_dst)`` of the dst-sorted graph ``g`` as
+    given (``sorted``), shuffled (``unsorted``), or with zero-weight
+    padding edges of random src and dst appended (``padded``; the
+    reference's "pad edges with w=0", so the input claims an order it
+    does not have)."""
+    src, dst, w = g.src, g.dst, g.weight
+    rng = np.random.default_rng(seed)
+    if layout == "unsorted":
+        order = rng.permutation(g.nnz)
+        return src[order], dst[order], w[order], False
+    if layout == "padded":
+        pad = 37
+        src = np.concatenate([src, rng.integers(0, g.n, pad).astype(np.int32)])
+        dst = np.concatenate([dst, rng.integers(0, g.n, pad).astype(np.int32)])
+        w = np.concatenate([w, np.zeros(pad, np.float32)])
+    return src, dst, w, True
+
+
+LAYOUTS = ["sorted", "unsorted", "padded"]
+
+
+class TestCooStep:
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    def test_power_step_coo(self, plan_case, layout):
+        """The port's COO step is the CSR step over the dst segments: it
+        meets the reference's CSR step on the same segments at the CSR
+        step's tolerance, and the reference's COO step (a float32
+        ``segment_sum``, where the port sums in double-single) at the
+        cross-backend tolerance, rtol 1e-3 / atol 1e-8."""
+        g, dangling, _, x = plan_case
+        src, dst, w, is_sorted = coo_layout(g, layout)
+        p = np.full(g.n, 1.0 / g.n, np.float32)
+        d = dangling.astype(np.float32)
+        port = tsp.power_step_coo(
+            *map(t, (src, dst, w, x, p, d)), torch.tensor(0.1), n=g.n, sorted_by_dst=is_sorted
+        ).numpy()
+        segments = tsp.dst_segments(t(src), t(dst), t(w), n=g.n, sorted_by_dst=is_sorted)
+        s_src, s_w, row_ptr = (a.numpy() for a in segments)
+        csr = j_step_csr(*map(jnp.asarray, (s_src, row_ptr, s_w, x, p, d)), np.float32(0.1))
+        np.testing.assert_allclose(port, np.asarray(csr), rtol=1e-5, atol=1e-9)
+        coo = j_step_coo(
+            *map(jnp.asarray, (src, dst, w, x, p, d)), np.float32(0.1),
+            n=g.n, sorted_by_dst=is_sorted,
+        )
+        np.testing.assert_allclose(port, np.asarray(coo), rtol=1e-3, atol=1e-8)
+
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    def test_dst_segments_keep_every_edge_in_its_segment(self, plan_case, layout):
+        """The edges come out in the stable dst order
+        (``TrustGraph.sorted_by_dst``'s), and each segment holds exactly
+        the real edges of its dst (the padding adds only zero weights),
+        so a misordered input never moves a real edge to another
+        segment."""
+        g, *_ = plan_case
+        src, dst, w, is_sorted = coo_layout(g, layout)
+        s_src, s_w, row_ptr = tsp.dst_segments(t(src), t(dst), t(w), n=g.n, sorted_by_dst=is_sorted)
+        order = np.argsort(dst, kind="stable")
+        same(s_src, src[order])
+        same(s_w, w[order])
+        assert row_ptr.dtype == torch.int32
+        same(row_ptr, np.searchsorted(dst[order], np.arange(g.n + 1)))
+        seg = np.repeat(np.arange(g.n), np.diff(row_ptr.numpy()))
+        real = s_w.numpy() != 0
+        got = sorted(zip(seg[real], s_src.numpy()[real], s_w.numpy()[real]))
+        want = sorted(zip(g.dst[g.weight != 0], g.src[g.weight != 0], g.weight[g.weight != 0]))
+        assert got == want
+
+    def test_dst_segments_sorted_input_is_not_moved(self, plan_case):
+        g, *_ = plan_case
+        src, dst, w = t(g.src), t(g.dst), t(g.weight)
+        s_src, s_w, row_ptr = tsp.dst_segments(src, dst, w, n=g.n)
+        assert s_src is src and s_w is w
+        same(row_ptr, g.row_ptr_by_dst())
+
+    def test_dst_outside_the_segments_is_dropped(self):
+        """``segment_sum`` drops a dst outside ``[0, n)``; so does the COO step."""
+        n = 4
+        src = np.array([0, 1, 2, 3, 0], np.int32)
+        dst = np.array([-1, 0, 1, 3, 4], np.int32)
+        w = np.array([0.5, 1.0, 1.0, 1.0, 0.5], np.float32)
+        x = np.full(n, 0.25, np.float32)
+        d = np.zeros(n, np.float32)
+        ref = j_step_coo(*map(jnp.asarray, (src, dst, w, x, x, d)), np.float32(0.0), n=n,
+                         sorted_by_dst=False)
+        port = tsp.power_step_coo(*map(t, (src, dst, w, x, x, d)), 0.0, n=n, sorted_by_dst=False)
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-6)

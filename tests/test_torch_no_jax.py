@@ -87,11 +87,19 @@ def test_default_device_raises_without_cuda(no_cuda):
     assert protocol_tpu_torch.resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", registered_backends())
+@pytest.mark.parametrize("name", [n for n in registered_backends() if n != "native-cpu"])
 def test_backend_without_device_raises_without_cuda(no_cuda, name):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_backend(name)
     assert get_backend(name, device="cpu").device == torch.device("cpu")
+
+
+def test_native_cpu_backend_is_the_host_by_name(no_cuda):
+    """``native-cpu`` is exact rational arithmetic on the host, as in the
+    reference: it asks for no card and takes no device."""
+    assert get_backend("native-cpu").device == torch.device("cpu")
+    with pytest.raises(TypeError):
+        get_backend("native-cpu", device="cuda")
 
 
 def test_model_without_device_raises_without_cuda(no_cuda):
