@@ -8,9 +8,12 @@ the windowed gather (K1) against its plain PyTorch version on the card,
 runs the windowed EigenTrust convergence at the headline size (1M peers
 / 50M edges, 40 power iterations) through the port's entry points,
 checks the result against the CSR formulation and the CSR formulation
-against the COO one (``cuda-sparse``, bit for bit), holds the edge
-gather-multiply of the CSR and COO steps (K9 ``gather_multiply``) at the
-headline's and the 65,536-peer graph's operands, holds the step's
+against the COO one (``cuda-sparse``, bit for bit), holds the CSR and
+COO steps' edge product folded into their row sums' block prefix (K9
+``gather_ds_cumsum``) at the headline's and the 65,536-peer graph's
+operands and at a ragged edge count with out-of-range sources, beside
+the earlier pair it replaced (the edge product
+``bench/yardsticks.py::gather_multiply``, then K5), holds the step's
 double-single prefix kernels (K5 ``ds_cumsum_rows``, K6
 ``compensated_scan``, which scans the block totals it reads from K5's
 lanes), the row prefix and bridge (K7 ``prefix_bridge``) and the row
@@ -19,7 +22,7 @@ the shapes the windowed and the CSR step give them (K7 also on the
 65,536-peer plan, K5 also at the plan rows, which K7 now covers, K6
 also at 1, 3 and 8,200 blocks and past its two depth thresholds, and K8
 also at pointer counts about the end of a warp's tile), times
-the earlier forms of K6 and K8 (``protocol_tpu_torch.bench.yardsticks``)
+the earlier forms of K6, K8 and K9 (``protocol_tpu_torch.bench.yardsticks``)
 beside them and one empty launch, and holds the kernel route of the
 windowed, CSR and COO steps against their plain route, bit for bit.
 Then the card against the CPU, a churned epoch replay against a cold
@@ -34,7 +37,8 @@ beside its earlier form; then K2 and K3 at their edge shapes
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
 (per kernel: launches on its path — the windowed headline converge for
-K1 and K5-K8, the CSR headline converge for K9, the probes phase for
+K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
+for K9, the probes phase for
 K2-K4 — and on the main path, agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
@@ -93,6 +97,7 @@ def main() -> None:
         F32_OPS_PER_S, REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
         trace_ms,
     )
+    from protocol_tpu_torch.bench.headline_converge import prepared
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
     from protocol_tpu_torch.models.graphs import erdos_renyi, scale_free
     from protocol_tpu_torch.ops import _build
@@ -120,17 +125,11 @@ def main() -> None:
     report = _build.build()
     build_s = time.perf_counter() - t0
     ptxas = {
-        name: [ln.strip() for ln in r["log"].splitlines() if "registers" in ln or "smem" in ln]
+        name: [ln.strip() for ln in r["log"].splitlines()
+               if "registers" in ln or "smem" in ln or "spill" in ln]
         for name, r in report.items()
     }
     emit("build", seconds=build_s, built=sorted(report), ptxas=ptxas)
-
-    def prepared(n, nnz, seed):
-        graph = scale_free(n, nnz, seed=seed)
-        g = graph.drop_self_edges()
-        w, dangling = g.row_normalized()
-        g = TrustGraph(g.n, g.src, g.dst, w, graph.pre_trusted).sorted_by_dst()
-        return graph, g, dangling, graph.pre_trust_vector()
 
     def k1_vs_plain(plan, args, x):
         """K1 against its plain version on one plan (a difference
@@ -171,7 +170,7 @@ def main() -> None:
         return by_name
 
     # -- 3. kernel on a 65,536-peer plan -----------------------------------
-    _, gs, _, _ = prepared(**SMALL)
+    _, gs, dangling_s, p_s = prepared(**SMALL)
     plan_s = gw.build_window_plan(gs.src, gs.dst, gs.weight, n=gs.n)
     x_s = np.random.default_rng(1).random(gs.n).astype(np.float32)
     res = k1_vs_plain(plan_s, plan_s.device_args(dev), torch.from_numpy(x_s / x_s.sum()).to(dev))
@@ -201,7 +200,7 @@ def main() -> None:
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
         gw.gather_windowed, sp.ds_cumsum_axis1, sp.block_total_scan, gw.prefix_bridge,
-        sp.rowsum_tail, sp.gather_multiply, pmg.take_along_axis, pmg.transpose2d,
+        sp.rowsum_tail, sp.gather_ds_cumsum, pmg.take_along_axis, pmg.transpose2d,
         pfp.gather_region,
     )
 
@@ -232,7 +231,9 @@ def main() -> None:
 
     run_csr()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     csr_scores, csr_seconds, csr_launches = counted(run_csr)
+    csr_peak = torch.cuda.max_memory_allocated()
     l1_csr = float(np.abs(scores.astype(np.float64) - csr_scores).sum())
     emit(
         "headline", peers=g.n, edges=g.nnz, iterations=iters, plan_seconds=plan_seconds,
@@ -240,11 +241,13 @@ def main() -> None:
         compression=plan.compression, seconds=seconds, ms_per_iter=seconds / iters * 1e3,
         max_memory_allocated=peak, k1_launches=launches, launches=main_launches,
         sum_scores=total, csr_seconds=csr_seconds, csr_launches=csr_launches, l1_vs_csr=l1_csr,
+        csr_max_memory_allocated=csr_peak,
     )
     # A windowed step runs K1 once, K7 once (the plan rows' prefix and the
     # bridge), K5 once (rowsum_sorted's blocks), K6 once (the block
     # totals' scan) and K8 once (the pointer tail); a CSR step K9 once
-    # (the edge product), then K5, K6 and K8 once each.
+    # (the edge product and its block prefix), then K6 and K8 once each,
+    # and K5 never.
     no_launch = dict.fromkeys((w.__name__ for w in wrappers), 0)
     expected = dict(
         no_launch, gather_windowed=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
@@ -255,8 +258,7 @@ def main() -> None:
         f"the {iters}-iteration converge launched {main_launches}, expected {expected}",
     )
     expected_csr = dict(
-        no_launch, gather_multiply=iters, ds_cumsum_axis1=iters, block_total_scan=iters,
-        rowsum_tail=iters,
+        no_launch, gather_ds_cumsum=iters, block_total_scan=iters, rowsum_tail=iters,
     )
     check(
         csr_launches == expected_csr,
@@ -321,42 +323,97 @@ def main() -> None:
     ct = sp.rowsum_sorted(part, dst_ptr)
     contrib = sp._gather_multiply(w_d, t_d, src_d)
 
-    def k9_vs_plain(w, x, src):
-        """K9 against its plain version (a difference raises).  Bytes:
-        src and w read and the product written (12 B an edge), the table
-        read once; operations: one multiply an edge.  The trace time is
-        the kernel's device time without the launch."""
-        e, n = src.shape[0], x.shape[0]
-        nbytes = 12 * e + 4 * n
-        res = kernel_vs_plain(
-            lambda: sp.gather_multiply(w, x, src), lambda: sp._gather_multiply(w, x, src),
-            wrapper=sp.gather_multiply, nbytes=nbytes, ops=e,
+    block = sp._ROWSUM_BLOCK
+
+    def k9_earlier(w, x, src):
+        """The pair K9 replaced: the edge product written out
+        (``bench/yardsticks.py::gather_multiply``), then K5 over it."""
+        return sp.ds_cumsum_axis1(ys.gather_multiply(w, x, src), block)
+
+    def k9_same(w, x, src):
+        """K9, its plain version and the earlier pair: both lanes bit for bit."""
+        out = sp.gather_ds_cumsum(w, x, src)
+        return all(
+            same_bits(a, b) and same_bits(a, c)
+            for a, b, c in zip(out, sp._gather_ds_cumsum(w, x, src), k9_earlier(w, x, src))
         )
-        return dict(res, shape=[e], table=n, bound_by=bound_by(nbytes, e),
-                    trace_ms=trace_ms(lambda: sp.gather_multiply(w, x, src)))
+
+    def k9_vs_plain(w, x, src):
+        """K9 against its plain version, both lanes (a difference raises).
+        Bytes: src and w read (8 B an edge), both lanes written (8 B a
+        slot), the table read once; operations: one multiply an edge and
+        ds_add's 11 adds a slot a level.  Beside it the earlier pair, held
+        bit-equal too, and the earlier product alone; the trace time (the
+        kernel's device time without the launch) last."""
+        e, n = src.shape[0], x.shape[0]
+        rows, levels = -(-e // block), block.bit_length() - 1
+        nbytes, ops = 8 * e + 8 * rows * block + 4 * n, e + 11 * levels * rows * block
+        res = kernel_vs_plain(
+            lambda: sp.gather_ds_cumsum(w, x, src), lambda: sp._gather_ds_cumsum(w, x, src),
+            wrapper=sp.gather_ds_cumsum, nbytes=nbytes, ops=ops,
+        )
+        check(
+            all(same_bits(a, b) for a, b in zip(k9_earlier(w, x, src), sp._gather_ds_cumsum(w, x, src))),
+            f"the earlier edge product and K5 differ from K9's plain version at {e} edges",
+        )
+        return dict(
+            res, shape=[rows, block], edges=e, table=n, ops=ops, bound_by=bound_by(nbytes, ops),
+            earlier_ms=time_ms(lambda: k9_earlier(w, x, src)),
+            earlier_gather_multiply_ms=time_ms(lambda: ys.gather_multiply(w, x, src)),
+            trace_ms=trace_ms(lambda: sp.gather_ds_cumsum(w, x, src)),
+        )
 
     # K9 at the CSR step's headline operands and at the 65,536-peer graph's.
     x_small = torch.from_numpy(x_s / x_s.sum()).to(dev)
-    k9 = {
-        "headline": k9_vs_plain(w_d, t_d, src_d),
-        "small": k9_vs_plain(
-            torch.from_numpy(gs.weight).to(dev), x_small, torch.from_numpy(gs.src).to(dev)
-        ),
-    }
+    w_small, src_small = torch.from_numpy(gs.weight).to(dev), torch.from_numpy(gs.src).to(dev)
+    k9 = {"headline": k9_vs_plain(w_d, t_d, src_d), "small": k9_vs_plain(w_small, x_small, src_small)}
     for where, rec in k9.items():
-        emit("kernel", kernel="gather_multiply", input=where, **rec)
-    # Slices at an odd element offset (4-byte aligned only) and an empty
-    # edge list go through the same kernel, bit for bit.
-    check(
-        same_bits(sp.gather_multiply(w_d[1:], t_d, src_d[1:]),
-                  sp._gather_multiply(w_d[1:], t_d, src_d[1:])),
-        "gather_multiply differs from its plain version on slices at an odd offset",
-    )
-    check(sp.gather_multiply(w_d[:0], t_d, src_d[:0]).shape == (0,), "gather_multiply of no edges")
-    del x_small
+        emit("kernel", kernel="gather_ds_cumsum", input=where, **rec)
+    # At edges: a ragged last row with sources -1, n and n + 5 (clamped to
+    # the table), a table at an odd element offset (its reads are 4-byte)
+    # and no edges, bit for bit; streams at an odd offset (its loads are
+    # 16-byte) are refused by the wrapper, while the CSR and COO steps and
+    # converges take one aligned copy of them and give the aligned result
+    # bit for bit.
+    ragged = 3 * block + 17
+    bad_src = src_small[:ragged].clone()
+    bad_src[0], bad_src[ragged // 2], bad_src[-1] = -1, gs.n, gs.n + 5
+    k9_edges = {
+        "ragged_clamped": k9_same(w_small[:ragged], x_small, bad_src),
+        "table_offset_1": k9_same(w_small, x_small[1:], src_small),
+        "no_edges": sp.gather_ds_cumsum(w_d[:0], t_d, src_d[:0])[0].shape == (0, block),
+    }
+    try:
+        sp.gather_ds_cumsum(w_d[1:], t_d, src_d[1:])
+        k9_edges["misaligned_refused"] = False
+    except ValueError:
+        k9_edges["misaligned_refused"] = True
 
-    # K5 and K6 at the shapes the two steps give them, bit for bit.
-    block = sp._ROWSUM_BLOCK
+    def offset_1(a):
+        """``a``'s values in a slice one element past a 16-byte boundary."""
+        return torch.cat([a[:1], a])[1:]
+
+    ptr_small, dst_small = torch.from_numpy(gs.row_ptr_by_dst()).to(dev), torch.from_numpy(gs.dst).to(dev)
+    dang_small = torch.from_numpy(dangling_s.astype(np.float32)).to(dev)
+    p_small = torch.from_numpy(p_s).to(dev)
+    for name, run_small in {
+        "csr_step": lambda w, src: sp.power_step_csr(src, ptr_small, w, x_small, p_small, dang_small, alpha),
+        "coo_step": lambda w, src: sp.power_step_coo(
+            src, dst_small, w, x_small, p_small, dang_small, alpha, n=gs.n),
+        "converge_csr": lambda w, src: sp.converge_csr(
+            src, ptr_small, w, x_small, p_small, dang_small, tol=0.0, max_iter=8)[0],
+        "converge_sparse": lambda w, src: sp.converge_sparse(
+            src, dst_small, w, x_small, p_small, dang_small, n=gs.n, tol=0.0, max_iter=8)[0],
+    }.items():
+        k9_edges[f"{name}_offset_1"] = same_bits(
+            run_small(offset_1(w_small), offset_1(src_small)), run_small(w_small, src_small)
+        )
+    emit("kernel_edges", kernel="gather_ds_cumsum", **k9_edges)
+    check(all(k9_edges.values()), f"gather_ds_cumsum at its edges: {k9_edges}")
+    del x_small, w_small, src_small, bad_src, ptr_small, dst_small, dang_small, p_small
+
+    # K5 and K6 at the shapes the two steps gave them, bit for bit (K5 at
+    # the CSR edges is the earlier pair's second half now).
 
     def k5_vs_plain(x, width=None):
         """K5 on the 2-D ``x``, or, with ``width``, on the unpadded 1-D
@@ -619,12 +676,14 @@ def main() -> None:
         "epilogue": lambda: sp.damp(ct, t_d, p_d, dang_d, alpha),
         "whole_step": windowed_step,
         "whole_step_plain": lambda: windowed_step_plain(t_d),
-        # The CSR step's two passes (ops/sparse.py::power_step_csr), beside K1.
-        "csr_gather_multiply": lambda: sp.gather_multiply(w_d, t_d, src_d),
-        "csr_gather_multiply_plain": lambda: sp._gather_multiply(w_d, t_d, src_d),
+        # The CSR step's passes (ops/sparse.py::gathered_rowsum, then damp).
+        "csr_gather_ds_cumsum": lambda: sp.gather_ds_cumsum(w_d, t_d, src_d),
+        "csr_gather_ds_cumsum_plain": lambda: sp._gather_ds_cumsum(w_d, t_d, src_d),
         "csr_block_total_scan": lambda: sp.block_total_scan(*tails["csr_blocks"][:2]),
         "csr_rowsum_tail": lambda: sp.rowsum_tail(*tails["csr_blocks"], ptr_d),
         "csr_rowsum_tail_plain": lambda: sp._rowsum_tail(*tails["csr_blocks"], ptr_d),
+        "csr_gathered_rowsum": lambda: sp.gathered_rowsum(w_d, t_d, src_d, ptr_d),
+        # The earlier route's row sums: K5, K6, K8 over the written products.
         "csr_rowsum_sorted": lambda: sp.rowsum_sorted(contrib, ptr_d),
         "csr_rowsum_sorted_plain": lambda: sp.rowsum_sorted_plain(contrib, ptr_d),
         "csr_whole_step": csr_step,
@@ -646,15 +705,21 @@ def main() -> None:
     # unprofiled wall time an iteration: 1 - busy / wall is the device's idle
     # share.  A measurement, not a check: where the trace holds no device
     # time, or the profiler fails, the line says "not measured".  Where it
-    # does, the checks: the step's rowsum_sorted launches K5, K6 and K8 once
-    # each and nothing else (K6 reads the block totals from the lanes, so no
-    # PyTorch add builds them), and the CSR step launches K9 once, the
-    # windowed step never.
+    # does, the checks: each step's row sums launch their three kernels
+    # once each and nothing else (the windowed step's rowsum_sorted K5, K6
+    # and K8; the CSR step's gathered_rowsum K9, K6 and K8; K6 reads the
+    # block totals from the lanes, so no PyTorch add builds them), and the
+    # step launches those three once each and none of the other path's:
+    # the CSR step no K5 and no earlier edge product, the windowed step no K9.
     profiles = {}
-    rowsum_kernels = ("ds_cumsum_rows_kernel", "compensated_scan_kernel", "rowsum_tail_kernel")
-    for name, fn, wall_ms, rowsum in (
-        ("windowed", windowed_step, seconds / iters * 1e3, lambda: sp.rowsum_sorted(part, dst_ptr)),
-        ("csr", csr_step, csr_seconds / iters * 1e3, lambda: sp.rowsum_sorted(contrib, ptr_d)),
+    k9_kernels = ("gather_ds_cumsum_kernel", "gather_multiply_kernel")
+    for name, fn, wall_ms, rowsum, kernels_of, absent in (
+        ("windowed", windowed_step, seconds / iters * 1e3, lambda: sp.rowsum_sorted(part, dst_ptr),
+         ("ds_cumsum_rows_kernel", "compensated_scan_kernel", "rowsum_tail_kernel"), k9_kernels),
+        ("csr", csr_step, csr_seconds / iters * 1e3,
+         lambda: sp.gathered_rowsum(w_d, t_d, src_d, ptr_d),
+         ("gather_ds_cumsum_kernel", "compensated_scan_kernel", "rowsum_tail_kernel"),
+         ("ds_cumsum_rows_kernel", "gather_multiply_kernel")),
     ):
         step_launches, rowsum_launches = {}, {}
         try:
@@ -667,22 +732,22 @@ def main() -> None:
             profiles[name] = {"busy_ms": "not measured", "error": "no device events in the trace"}
             continue
         busy = sum(by_name.values())
-        k9_a_step = sum(c for kn, c in step_launches.items() if "gather_multiply_kernel" in kn)
+        a_step = {k: sum(c for kn, c in step_launches.items() if k in kn) for k in kernels_of + absent}
         profiles[name] = {
             "busy_ms": busy, "wall_ms_per_iter": wall_ms, "idle_share": 1.0 - busy / wall_ms,
             "top_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]),
             "kernels_a_step": sum(step_launches.values()),
-            "gather_multiply_a_step": k9_a_step,
+            "row_sum_kernels_a_step": a_step,
             "rowsum_sorted_kernels": rowsum_launches,
         }
         check(
-            k9_a_step == (1.0 if name == "csr" else 0.0),
-            f"the {name} step launched gather_multiply {k9_a_step} times a step",
+            all(a_step[k] == 1.0 for k in kernels_of) and not any(a_step[k] for k in absent),
+            f"the {name} step launched {a_step} a step",
         )
         check(
             sorted(rowsum_launches.values()) == [1.0, 1.0, 1.0]
-            and all(any(k in kn for kn in rowsum_launches) for k in rowsum_kernels),
-            f"the {name} step's rowsum_sorted launched {rowsum_launches}, not K5, K6 and K8 once each",
+            and all(any(k in kn for kn in rowsum_launches) for k in kernels_of),
+            f"the {name} step's row sums launched {rowsum_launches}, not {kernels_of} once each",
         )
     emit("step_profile", **profiles)
     del out, slots, part, ct, step_fns, src_d, ptr_d, w_d, dst_d, contrib, tails, run_ptr
@@ -958,16 +1023,16 @@ def main() -> None:
     head = k9["headline"]
     kernels.append(
         {
-            "name": "gather_multiply",
-            "wrapper": "gather_multiply",
+            "name": "gather_ds_cumsum",
+            "wrapper": "gather_ds_cumsum",
             "route": "cuda",
-            "source": "protocol_tpu_torch/ops/csrc/gather_multiply.cu",
-            "replaces": "protocol_tpu/ops/sparse.py:147 + :257",
+            "source": "protocol_tpu_torch/ops/csrc/gather_ds_cumsum.cu",
+            "replaces": "protocol_tpu/ops/sparse.py:147 + :257 + :80",
             "path": "csr_headline",
-            "launches": csr_launches["gather_multiply"],
-            "main_path_launches": main_launches["gather_multiply"],
-            "csr_path_launches": csr_launches["gather_multiply"],
-            "sparse_path_launches": sparse_launches["gather_multiply"],
+            "launches": csr_launches["gather_ds_cumsum"],
+            "main_path_launches": main_launches["gather_ds_cumsum"],
+            "csr_path_launches": csr_launches["gather_ds_cumsum"],
+            "sparse_path_launches": sparse_launches["gather_ds_cumsum"],
             "shape": head["shape"],
             "max_abs_err": max(r["max_abs_err"] for r in k9.values()),
             "ms": head["ms"],
@@ -976,11 +1041,14 @@ def main() -> None:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": None,
-            "bound_ms_l2_reads": head["shape"][0] / l2_reads_per_ms,
+            "bound_ms_l2_reads": head["edges"] / l2_reads_per_ms,
             "l2_reads_gelem_per_s": l2_reads_per_ms / 1e6,
+            # The pair it replaced (the edge product, then K5), this run.
+            "earlier_ms": head["earlier_ms"],
+            "earlier_gather_multiply_ms": head["earlier_gather_multiply_ms"],
             "shapes": {
-                where: {k: r[k] for k in ("shape", "table", "ms", "trace_ms", "plain_ms",
-                                          "bound_ms", "bytes", "max_abs_err")}
+                where: {k: r[k] for k in ("shape", "edges", "table", "ms", "trace_ms", "plain_ms",
+                                          "bound_ms", "bytes", "earlier_ms", "max_abs_err")}
                 for where, r in k9.items()
             },
         }

@@ -8,8 +8,8 @@ reference so each counterpart is easy to find:
   (``native-cpu``, ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``,
   ``cuda-windowed``).
 - ``ops``     — the power iteration, the dense, COO and CSR steps (the
-  edge product on the hand-written CUDA kernel
-  ``ops/csrc/gather_multiply.cu``), the host-built ``WindowPlan`` and
+  edge product and its block prefix in the hand-written CUDA kernel
+  ``ops/csrc/gather_ds_cumsum.cu``), the host-built ``WindowPlan`` and
   the windowed step on the hand-written CUDA gather kernel
   (``ops/csrc/gather_window.cu``).
 - ``models``  — graph and churn generators and ``EigenTrustModel``.

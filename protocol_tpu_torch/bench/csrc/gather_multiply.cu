@@ -1,13 +1,16 @@
-// The edge gather-multiply of the CSR and COO steps on Hopper (K9):
+// A yardstick, off the main path: the earlier form of the CSR and COO steps' edge product
+// (K9), which wrote its products to device memory for ds_cumsum_rows.cu (K5) to read back.
+// protocol_tpu_torch/ops/csrc/gather_ds_cumsum.cu replaced that pair with one kernel.
+// chip_smoke.py times the pair beside it; the port never calls it.
 //
 //     contrib[e] = w[e] * t[src[e]]      for e < E
 //
-// Replaces the jit'd XLA product `w * t[src]` of `power_step_csr`
-// (protocol_tpu/ops/sparse.py:147) and `power_step_coo` (:257), the first half of
-// ROADMAP B5.  It is not a Pallas kernel in the reference; the port's plain version,
-// `_gather_multiply` in protocol_tpu_torch/ops/sparse.py, is `w * t.index_select(0, src)`.
+// It computes the jit'd XLA product `w * t[src]` of `power_step_csr`
+// (protocol_tpu/ops/sparse.py:147) and `power_step_coo` (:257).  It is not a Pallas kernel
+// in the reference; the port's plain version, `_gather_multiply` in
+// protocol_tpu_torch/ops/sparse.py, is `w * t.index_select(0, src.clamp(0, n - 1))`.
 // A gathered index is clamped to [0, n), as XLA clamps a gather, so a bad index never
-// reads outside the table; wherever the plain version is defined the two agree.
+// reads outside the table.
 //
 // Numerics: one IEEE float32 multiply an edge (`__fmul_rn`, nothing to contract), so the
 // output equals the plain version bit for bit.  The source is never built with
@@ -32,7 +35,8 @@
 //   - Accesses are 4-byte, so any element-aligned slice of a tensor is taken as it is:
 //     no ragged head or tail needs code of its own, the bound check covers the end.
 //
-// C interface (loaded with ctypes by protocol_tpu_torch/ops/_build.py):
+// C interface (loaded with ctypes by protocol_tpu_torch/ops/_build.py for
+// protocol_tpu_torch/bench/yardsticks.py):
 //     int gather_multiply(w, t, src, out, e, n, stream)
 // with src int32, launches on `stream` and returns cudaGetLastError() (0 on success);
 // e > 0 with n <= 0 returns cudaErrorInvalidValue.

@@ -12,6 +12,10 @@
 - ``take_along_axis_ldg(t, idx, axis)``: the earlier K2
   (``bench/csrc/take_along_axis_ldg.cu``), one read of the table a
   gathered element.  ``ops/csrc/take_along_axis.cu`` replaced it.
+- ``gather_multiply(w, t, src)``: the earlier edge product of the CSR
+  and COO steps (``bench/csrc/gather_multiply.cu``), ``w * t[src]``
+  written to device memory, which ``ops/sparse.py::ds_cumsum_axis1``
+  then scanned.  ``ops/sparse.py::gather_ds_cumsum`` replaced the pair.
 
 The port never calls them.  Each takes CUDA tensors only and raises
 otherwise; they keep no launch counts.
@@ -22,11 +26,11 @@ from __future__ import annotations
 import torch
 
 from protocol_tpu_torch.ops import _build
-from protocol_tpu_torch.ops.sparse import _check_tail_operands
+from protocol_tpu_torch.ops.sparse import _check_edge_operands, _check_tail_operands
 
 
-def _cuda(name: str, **operands: torch.Tensor) -> torch.device:
-    device = _build.operand_device(name, **operands)
+def _cuda(name: str, align: int = 16, **operands: torch.Tensor) -> torch.device:
+    device = _build.operand_device(name, align=align, **operands)
     if device.type != "cuda":
         raise ValueError(f"{name} is a yardstick on the card: it takes CUDA tensors only")
     return device
@@ -84,5 +88,19 @@ def take_along_axis_ldg(t: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.
         _build.launch(
             "take_along_axis_ldg", device, t.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols,
             axis,
+        )
+    return out
+
+
+def gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """The earlier edge product on the operands ``gather_ds_cumsum``
+    takes; 4-byte accesses, so a slice at any element offset is taken."""
+    _check_edge_operands("gather_multiply", w, t, src)
+    device = _cuda("gather_multiply", align=4, w=w, t=t, src=src)
+    out = w.new_empty(w.shape)
+    if w.numel():
+        _build.launch(
+            "gather_multiply", device, w.data_ptr(), t.data_ptr(), src.data_ptr(),
+            out.data_ptr(), w.numel(), t.numel(),
         )
     return out

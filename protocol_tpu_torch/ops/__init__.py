@@ -21,7 +21,8 @@ from .gather_window import (  # noqa: F401
 from .sparse import (  # noqa: F401
     converge_csr,
     converge_sparse,
-    gather_multiply,
+    gather_ds_cumsum,
+    gathered_rowsum,
     power_step_coo,
     power_step_csr,
     rowsum_sorted,

@@ -77,9 +77,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (w, t, src, out, e, n, stream)
-    "gather_multiply": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+    # (w, t, src, hi, lo, e, n, stream)
+    "gather_ds_cumsum": (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # Yardsticks (bench/csrc).  (x, hi, lo, scratch, n, stream)
@@ -104,13 +104,18 @@ SIGNATURES = {
         [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 6 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # (w, t, src, out, e, n, stream)
+    "gather_multiply": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 #: The sources under ``bench/csrc``: yardsticks and probes, which may
 #: include a kernel source of ``csrc``.
 BENCH_KERNELS = (
     "compensated_scan_global", "rowsum_tail_scalar", "empty_kernel", "rowsum_tail_forms",
-    "take_along_axis_ldg",
+    "take_along_axis_ldg", "gather_multiply",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -39,9 +39,10 @@
 // A ragged last row.  `x` holds n <= rows * cols elements; the kernel reads
 // every element at or past n as +0.0, exactly the zero-padding that
 // `rowsum_sorted` gives its 2048-blocks, so that pass needs no padded copy of
-// its 50M contributions.  A thread whose four elements all lie below n still
-// makes one 16-byte load; the one thread that straddles n reads its elements
-// one by one.
+// its contributions (the windowed step's; the CSR step's edge products are scanned
+// inside gather_ds_cumsum.cu, which takes this layout).  A thread whose four elements
+// all lie below n still makes one 16-byte load; the one thread that straddles n reads
+// its elements one by one.
 //
 // C interface (loaded with ctypes by protocol_tpu_torch/ops/_build.py):
 //     int ds_cumsum_rows(x, hi, lo, rows, cols, n, stream)

@@ -1,6 +1,6 @@
 // The double-single add and the row scan that the step's kernels share: ds_cumsum_rows.cu
-// (K5) and prefix_bridge.cu (K7) scan rows with `ds_scan_row`, rowsum_tail.cu (K8) adds
-// with `ds_add`.  Each .cu file includes this header and builds on its own.
+// (K5), prefix_bridge.cu (K7) and gather_ds_cumsum.cu (K9) scan rows with `ds_scan_row`,
+// rowsum_tail.cu (K8) adds with `ds_add`.  Each .cu file includes this header and builds on its own.
 //
 // Op order is the contract: the prefixes are bit-identical to the JAX package on the CPU.
 // Every add and subtract is __fadd_rn / __fsub_rn, in ds_add's order (e + al + bl is

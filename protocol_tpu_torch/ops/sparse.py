@@ -10,16 +10,19 @@ Everything up to ``Cᵀt`` repeats the reference's CSR arithmetic op for
 op, so the prefix sums and row sums are bit-identical to the JAX package
 (tests/test_torch_kernels.py); only the epilogue's two ``sum``
 reductions may run in another order.  None of these passes is a Pallas
-kernel in the reference (they are jit'd XLA).  On a card the edge
-product ``w · t[src]`` runs as ``gather_multiply``
-(``csrc/gather_multiply.cu``) and ``rowsum_sorted``'s three passes as
-``ds_cumsum_axis1`` (``csrc/ds_cumsum_rows.cu``), ``block_total_scan``
+kernel in the reference (they are jit'd XLA).  On a card
+``rowsum_sorted``'s three passes run as ``ds_cumsum_axis1``
+(``csrc/ds_cumsum_rows.cu``), ``block_total_scan``
 (``csrc/compensated_scan.cu``, which reads the block totals from the
-prefix lanes itself) and ``rowsum_tail`` (``csrc/rowsum_tail.cu``),
-all hand-written CUDA with the same op order; their plain versions
-``_gather_multiply``, ``_ds_cumsum_axis1``, ``_block_total_scan`` and
-``_rowsum_tail`` serve CPU tensors.  The COO step sums over ``dst``
-with the same ``rowsum_sorted`` on pointers derived from the dst order
+prefix lanes itself) and ``rowsum_tail`` (``csrc/rowsum_tail.cu``).
+The CSR and COO steps fold the edge product ``w · t[src]`` into the
+first of them: ``gather_ds_cumsum`` (``csrc/gather_ds_cumsum.cu``)
+gathers, multiplies and scans each 2048-edge block in one kernel, so the
+products never reach device memory (``gathered_rowsum``).  All are
+hand-written CUDA with the reference's op order; their plain versions
+``_ds_cumsum_axis1``, ``_block_total_scan``, ``_rowsum_tail`` and
+``_gather_ds_cumsum`` serve CPU tensors.  The COO step sums over ``dst``
+with the same row sums on pointers derived from the dst order
 (``dst_segments``), not with a scatter: its sums are double-single where
 the reference's ``segment_sum`` is float32, so COO scores agree with the
 reference within its cross-backend tolerance, not bit for bit.  The
@@ -322,64 +325,117 @@ def rowsum_sorted(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     Hillis-Steele over zero-padded 2048-blocks (``ds_cumsum_axis1``), a
     TwoSum scan over block totals (``block_total_scan``), then the
     pointer lookups and hi/lo-separate differencing (``rowsum_tail``)."""
-    return _rowsum_sorted(contrib, row_ptr, ds_cumsum_axis1, block_total_scan, rowsum_tail)
+    return _rowsum_sorted(
+        ds_cumsum_axis1(contrib, _ROWSUM_BLOCK), row_ptr, block_total_scan, rowsum_tail
+    )
 
 
 def rowsum_sorted_plain(contrib: torch.Tensor, row_ptr: torch.Tensor) -> torch.Tensor:
     """``rowsum_sorted`` through the three passes' plain versions on any
     device, the padding into blocks a real copy: the route the kernels'
     route is held against on the card."""
-    return _rowsum_sorted(contrib, row_ptr, _ds_cumsum_blocks, _block_total_scan, _rowsum_tail)
+    return _rowsum_sorted(
+        _ds_cumsum_blocks(contrib, _ROWSUM_BLOCK), row_ptr, _block_total_scan, _rowsum_tail
+    )
 
 
-def _rowsum_sorted(contrib, row_ptr, ds_cumsum, scan, tail) -> torch.Tensor:
-    wh, wl = ds_cumsum(contrib, _ROWSUM_BLOCK)
+def gathered_rowsum(
+    w: torch.Tensor, t: torch.Tensor, src: torch.Tensor, row_ptr: torch.Tensor
+) -> torch.Tensor:
+    """``rowsum_sorted(w · t[src], row_ptr)``, the CSR step's ``Cᵀt``,
+    with the edge product folded into the block-local prefix
+    (``gather_ds_cumsum``), then ``block_total_scan`` and ``rowsum_tail``
+    on its lanes: the products never exist as a tensor."""
+    return _rowsum_sorted(gather_ds_cumsum(w, t, src), row_ptr, block_total_scan, rowsum_tail)
+
+
+def _rowsum_sorted(lanes, row_ptr, scan, tail) -> torch.Tensor:
+    """The row sums from the block-local prefix lanes ``(wh, wl)`` of the
+    contributions in 2048-blocks: the block totals' scan, then the
+    pointer tail."""
+    wh, wl = lanes
     hi_in, lo_in = scan(wh, wl)
     return tail(wh, wl, hi_in, lo_in, row_ptr)
 
 
 def _gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """The plain version of ``gather_multiply``: ``w * t[src]``."""
-    return w * t.index_select(0, src)
+    """The edge product ``w * t[src]``, every index clamped to
+    ``[0, len(t) - 1]`` as the kernels clamp it: the plain version of the
+    product ``gather_ds_cumsum`` folds into its prefix.  For an index at
+    or past the table's end this is the reference's ``t[src]``; a
+    negative index differs, since JAX wraps it first (-1 reads
+    ``t[n - 1]`` there and ``t[0]`` here)."""
+    return w * t.index_select(0, src.clamp(0, t.shape[0] - 1))
 
 
-def gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """The edge product ``w[e] * t[src[e]]`` of contiguous 1-D float32
-    ``w`` and ``t`` and int32 ``src`` (one entry an edge).
-
-    On CUDA tensors this launches ``csrc/gather_multiply.cu`` (K9: one
-    IEEE multiply an edge, so bit-equal to the plain version; a gathered
-    index is clamped to the table, as XLA clamps) and adds one to
-    ``gather_multiply.launches``; a launch the card refuses raises.  On
-    CPU tensors it is the plain version.  Mixed or other devices raise."""
-    for name, a, dtype in (("w", w, torch.float32), ("t", t, torch.float32),
-                           ("src", src, torch.int32)):
+def _check_edge_operands(name: str, w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> None:
+    """Raise unless ``w`` and ``t`` are 1-D float32, ``src`` 1-D int32 of
+    ``w``'s shape, and the table is non-empty where there are edges."""
+    for arg, a, dtype in (("w", w, torch.float32), ("t", t, torch.float32),
+                          ("src", src, torch.int32)):
         if a.dim() != 1:
-            raise ValueError(f"gather_multiply: {name} must be 1-D, got shape {tuple(a.shape)}")
+            raise ValueError(f"{name}: {arg} must be 1-D, got shape {tuple(a.shape)}")
         if a.dtype != dtype:
-            raise TypeError(f"gather_multiply: {name} must be {dtype}, got {a.dtype}")
+            raise TypeError(f"{name}: {arg} must be {dtype}, got {a.dtype}")
     if src.shape != w.shape:
-        raise ValueError(
-            f"gather_multiply: src has shape {tuple(src.shape)}, w {tuple(w.shape)}"
-        )
+        raise ValueError(f"{name}: src has shape {tuple(src.shape)}, w {tuple(w.shape)}")
     if w.numel() and not t.numel():
-        raise ValueError("gather_multiply: edges need a non-empty table")
-    # 4-byte accesses only: any slice of a tensor is taken as it is.
-    device = _build.operand_device("gather_multiply", align=4, w=w, t=t, src=src)
+        raise ValueError(f"{name}: edges need a non-empty table")
+
+
+def _gather_ds_cumsum(
+    w: torch.Tensor, t: torch.Tensor, src: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of ``gather_ds_cumsum``: the block prefix of the
+    zero-padded edge products."""
+    return _ds_cumsum_blocks(_gather_multiply(w, t, src), _ROWSUM_BLOCK)
+
+
+def gather_ds_cumsum(
+    w: torch.Tensor, t: torch.Tensor, src: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_ds_cumsum_axis1`` of the edge products ``w[e] * t[src[e]]`` in
+    ``rowsum_sorted``'s 2048-edge rows, the last row padded with +0.0:
+    the lanes ``(wh, wl)``, each ``(ceil(E / 2048), 2048)``.  ``w`` and
+    ``t`` are contiguous 1-D float32, ``src`` int32, one entry an edge; a
+    gathered index is clamped to the table (``_gather_multiply``).
+
+    On CUDA tensors this launches ``csrc/gather_ds_cumsum.cu`` (one block
+    a row: the gathers, one IEEE multiply an edge and K5's row scan, so
+    bit-equal to the plain version) and adds one to
+    ``gather_ds_cumsum.launches``; ``w`` and ``src`` must be 16-byte
+    aligned (a misaligned slice raises here; the steps and converges
+    copy it once, ``_aligned``), and a launch the card refuses
+    raises.  On CPU tensors it is the plain version.  Mixed or other
+    devices raise."""
+    _check_edge_operands("gather_ds_cumsum", w, t, src)
+    # 16-byte loads of the streams; the table is read 4 bytes at a time.
+    device = _build.operand_device("gather_ds_cumsum", w=w, src=src)
+    _build.operand_device("gather_ds_cumsum", align=4, w=w, t=t)
     if device.type == "cpu":
-        return _gather_multiply(w, t, src)
-    out = w.new_empty(w.shape)
-    if w.numel():
+        return _gather_ds_cumsum(w, t, src)
+    e = w.numel()
+    rows = -(-e // _ROWSUM_BLOCK)
+    hi, lo = w.new_empty((rows, _ROWSUM_BLOCK)), w.new_empty((rows, _ROWSUM_BLOCK))
+    if rows:
         _build.launch(
-            "gather_multiply", device, w.data_ptr(), t.data_ptr(), src.data_ptr(),
-            out.data_ptr(), w.numel(), t.numel(),
+            "gather_ds_cumsum", device, w.data_ptr(), t.data_ptr(), src.data_ptr(),
+            hi.data_ptr(), lo.data_ptr(), e, t.numel(),
         )
-        gather_multiply.launches += 1
-    return out
+        gather_ds_cumsum.launches += 1
+    return hi, lo
 
 
 #: Kernel launches in this process (the plain version does not count).
-gather_multiply.launches = 0  # type: ignore[attr-defined]
+gather_ds_cumsum.launches = 0  # type: ignore[attr-defined]
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where it starts off a 16-byte boundary, as
+    a slice at an odd element offset does: ``gather_ds_cumsum`` loads
+    ``w`` and ``src`` 16 bytes at a time.  The CSR step takes the copy a
+    call, the converges once before their loop."""
+    return x.clone() if x.data_ptr() % 16 else x
 
 
 def damp(
@@ -406,8 +462,9 @@ def power_step_csr(
     alpha: torch.Tensor,
 ) -> torch.Tensor:
     """One damped step in the gather-only CSR formulation:
-    ``cᵀt[j] = rowsum_sorted(w · t[src], row_ptr)``."""
-    ct = rowsum_sorted(gather_multiply(w, t, src), row_ptr)
+    ``cᵀt[j] = rowsum_sorted(w · t[src], row_ptr)`` (``gathered_rowsum``).
+    ``w`` and ``src`` may be slices at any element offset (``_aligned``)."""
+    ct = gathered_rowsum(_aligned(w), t, _aligned(src), row_ptr)
     return damp(ct, t, p, dangling, alpha)
 
 
@@ -520,8 +577,10 @@ def converge_csr(
 ) -> tuple:
     """CSR convergence; returns ``(t, iterations, residual[, history])``
     (see ``run_power_iteration``).  ``alpha`` is used as a float32
-    scalar on ``t0``'s device, as the reference stages it."""
+    scalar on ``t0``'s device, as the reference stages it.  A ``w`` or
+    ``src`` off a 16-byte boundary is copied once, before the loop."""
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=t0.device)
+    w, src = _aligned(w), _aligned(src)
     return run_power_iteration(
         lambda t: power_step_csr(src, row_ptr, w, t, p, dangling, alpha),
         t0,

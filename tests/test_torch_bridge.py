@@ -678,7 +678,8 @@ class TestRoutedPasses:
             t(g.src), t(g.row_ptr_by_dst()), t(g.weight), t(p), t(p),
             t(dangling.astype(F32)), torch.tensor(0.1),
         )
-        assert spied == {"prefix_bridge": 0, "ds_cumsum_axis1": 1, "rowsum_tail": 1}
+        # The CSR step's block prefix is gather_ds_cumsum's, not K5's.
+        assert spied == {"prefix_bridge": 0, "ds_cumsum_axis1": 0, "rowsum_tail": 1}
 
     def test_plain_route_calls_no_wrapper(self, spied):
         e, n = 5000, 300

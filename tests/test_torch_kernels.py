@@ -16,9 +16,13 @@ whose ``segment_sum`` sums in float32 where the port sums in
 double-single, at the cross-backend tolerance (rtol 1e-3, atol 1e-8).
 
 The CUDA kernels themselves (K1 ``gather_windowed``, K9
-``gather_multiply``) run only on a card; ``chip_smoke.py`` holds them
-against their plain versions there.  Here the wrappers' CPU route, their
-launch counters and their argument checks are covered.
+``gather_ds_cumsum``, which folds the edge product into the CSR row
+sums' block prefix, and the earlier edge product kept as a yardstick,
+``bench/yardsticks.py::gather_multiply``) run only on a card;
+``chip_smoke.py`` holds them against their plain versions there.  Here
+the wrappers' CPU route, their launch counters and their argument checks
+are covered (K9's lanes against the JAX composition:
+tests/test_torch_gather_scan.py).
 """
 
 import numpy as np
@@ -31,6 +35,7 @@ import jax.numpy as jnp
 from protocol_tpu.models.graphs import scale_free
 from protocol_tpu.ops import gather_window as jgw
 from protocol_tpu.ops import sparse as jsp
+from protocol_tpu_torch.bench import yardsticks as tys
 from protocol_tpu_torch.ops import gather_window as tgw
 from protocol_tpu_torch.ops import sparse as tsp
 
@@ -229,6 +234,11 @@ def edge_operands(e: int, n: int, seed: int):
     return w, x, src
 
 
+#: The wrappers that take the edge operands ``(w, t, src)``: the step's
+#: K9 and the earlier product, a yardstick on the card.
+EDGE_WRAPPERS = {"gather_ds_cumsum": tsp.gather_ds_cumsum, "gather_multiply": tys.gather_multiply}
+
+
 class TestGatherMultiply:
     @pytest.mark.parametrize("e, n", [(0, 5), (1, 1), (3, 7), (1021, 300), (30_001, 2500)])
     def test_plain_matches_reference_bits(self, e, n):
@@ -236,14 +246,24 @@ class TestGatherMultiply:
         same_bits(tsp._gather_multiply(t(w), t(x), t(src)), j_gather_multiply(w, x, src))
 
     def test_wrapper_takes_plain_route_on_cpu_without_counting(self):
+        """The step's wrapper of the edge product, ``gather_ds_cumsum``,
+        takes its plain route on CPU tensors and counts no launch; the
+        earlier product's wrapper is a yardstick and takes CUDA tensors
+        only."""
         w, x, src = map(t, edge_operands(5001, 400, seed=1))
-        before = tsp.gather_multiply.launches
-        out = tsp.gather_multiply(w, x, src)
-        assert tsp.gather_multiply.launches == before
-        same_bits(out, tsp._gather_multiply(w, x, src))
-        # A slice at any element offset is taken as it is.
-        same_bits(tsp.gather_multiply(w[1:], x, src[1:]), tsp._gather_multiply(w[1:], x, src[1:]))
+        before = tsp.gather_ds_cumsum.launches
+        out = tsp.gather_ds_cumsum(w, x, src)
+        assert tsp.gather_ds_cumsum.launches == before
+        for port, ref in zip(out, tsp._ds_cumsum_blocks(tsp._gather_multiply(w, x, src), 2048)):
+            same_bits(port, ref)
+        # On the CPU a slice at any element offset is taken as it is.
+        for port, ref in zip(tsp.gather_ds_cumsum(w[1:], x, src[1:]),
+                             tsp._gather_ds_cumsum(w[1:], x, src[1:])):
+            same_bits(port, ref)
+        with pytest.raises(ValueError, match="yardstick on the card"):
+            tys.gather_multiply(w, x, src)
 
+    @pytest.mark.parametrize("wrapper", sorted(EDGE_WRAPPERS))
     @pytest.mark.parametrize(
         "mutate, exc",
         [
@@ -257,15 +277,16 @@ class TestGatherMultiply:
         ],
         ids=["w-dtype", "t-dtype", "src-dtype", "src-shape", "w-2d", "empty-table", "mixed-device"],
     )
-    def test_rejects_bad_operands(self, mutate, exc):
+    def test_rejects_bad_operands(self, mutate, exc, wrapper):
         a = mutate(dict(w=torch.zeros(8), x=torch.zeros(4), src=torch.zeros(8, dtype=torch.int32)))
         with pytest.raises(exc):
-            tsp.gather_multiply(a["w"], a["x"], a["src"])
+            EDGE_WRAPPERS[wrapper](a["w"], a["x"], a["src"])
 
-    def test_meta_tensors_raise_instead_of_falling_back(self):
+    @pytest.mark.parametrize("wrapper", sorted(EDGE_WRAPPERS))
+    def test_meta_tensors_raise_instead_of_falling_back(self, wrapper):
         meta = dict(device="meta")
         with pytest.raises(ValueError, match="cpu or cuda"):
-            tsp.gather_multiply(
+            EDGE_WRAPPERS[wrapper](
                 torch.zeros(8, **meta), torch.zeros(4, **meta),
                 torch.zeros(8, dtype=torch.int32, **meta),
             )

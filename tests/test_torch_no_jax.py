@@ -102,6 +102,13 @@ def test_native_cpu_backend_is_the_host_by_name(no_cuda):
         get_backend("native-cpu", device="cuda")
 
 
+def test_headline_converge_timing_raises_without_cuda(no_cuda):
+    from protocol_tpu_torch.bench import headline_converge
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        headline_converge.run()
+
+
 def test_model_without_device_raises_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         EigenTrustModel(erdos_renyi(50, seed=0)).converge()
