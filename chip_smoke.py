@@ -32,14 +32,22 @@ reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
 versions and library calls bit for bit, with event and trace times, K2
 beside its earlier form; then K2 and K3 at their edge shapes
-(``probe_edges``).
+(``probe_edges``).  Then the single-device node (``node``): the
+reference's bootstrap group of 5 and a seeded group of 64, each through
+three ``EpochPipeline`` epochs, a commitment proof, a checkpoint, a
+recovery and a warm-started epoch on ``cuda-windowed`` and on
+``cuda-csr`` (``protocol_tpu_torch.node``), held against direct
+converges on the card, the same node on the CPU and the kernel budgets
+the backends declare (launch counts and a profiler trace), with each
+stage's seconds.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
 (per kernel: launches on its path — the windowed headline converge for
 K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
 for K9, the probes phase for
-K2-K4 — and on the main path, agreement with the plain version, its
+K2-K4 — on the main path, on the node's card converges by backend
+(``node_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -76,6 +84,299 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+NODE = dict(groups=(5, 64), seed=3, epochs=3, backends=("cuda-windowed", "cuda-csr"))
+NODE_KW = dict(alpha=0.1, tol=1e-6, max_iter=50)
+
+
+def node_group(n: int, seed: int):
+    """The group's bs58 secret-key pairs (the reference's bootstrap set
+    at 5, else ``n`` seeded members), every member's attestation (score
+    rows summing to SCALE, no self-score) and sender 0's re-attestation."""
+    import random
+
+    import numpy as np
+
+    from protocol_tpu_torch.crypto import calculate_message_hash
+    from protocol_tpu_torch.crypto.eddsa import SecretKey, sign
+    from protocol_tpu_torch.node.attestation import Attestation
+    from protocol_tpu_torch.node.bootstrap import FIXED_SET, SCALE, keyset_from_raw
+    from protocol_tpu_torch.utils.codec import b58encode
+
+    fixed_set = list(FIXED_SET) if n == len(FIXED_SET) else [
+        tuple(b58encode(part) for part in SecretKey.random(random.Random(seed * 1000 + i)).to_raw())
+        for i in range(n)
+    ]
+    rng = np.random.default_rng(seed + n)
+
+    def row(i):
+        w = rng.integers(0, 8, n)
+        w[i] = 0
+        w[(i + 1) % n] += 1
+        r = w * SCALE // w.sum()
+        r[(i + 1) % n] += SCALE - r.sum()
+        return [int(x) for x in r]
+
+    rows = [(i, row(i)) for i in range(n)] + [(0, row(0))]
+    sks, pks = keyset_from_raw(fixed_set)
+    _, msgs = calculate_message_hash(pks, [r for _, r in rows])
+    atts = [
+        Attestation(sig=sign(sks[i], pks[i], m), pk=pks[i], neighbours=list(pks), scores=r)
+        for (i, r), m in zip(rows, msgs)
+    ]
+    return fixed_set, atts[:-1], atts[-1]
+
+
+def run_node(fixed_set, atts, reattestation, backend, device, workdir, wrappers):
+    """One node's life on ``backend``: ingest, three epochs through the
+    ``EpochPipeline`` (sender 0 re-attests before the third, so it takes
+    the delta plan), the commitment proof, a checkpoint, recovery into a
+    fresh manager and a warm-started fourth epoch.  Per epoch, from the
+    device stage: the graph, seed and plan it ran on, its iterations and
+    scores, the launches of every counted kernel wrapper (set to 0 just
+    before its converge, read just after), its plan outcome, the kernel
+    libraries built during it, and whether it ran on the card's default
+    stream.  Stage seconds beside them."""
+    import shutil
+    import time
+
+    import torch
+
+    from protocol_tpu_torch.node.checkpoint import CheckpointStore
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.node.pipeline import EpochPipeline
+    from protocol_tpu_torch.node.wal import AttestationWAL, recover
+    from protocol_tpu_torch.obs import RECOMPILES
+    from protocol_tpu_torch.obs.metrics import PLAN_OUTCOMES
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    config = ManagerConfig(
+        backend=backend, device=device, prover="commitment", check_circuit=False,
+        fixed_set=list(fixed_set), num_neighbours=len(fixed_set), plan_delta_max_churn=0.25,
+    )
+    stages = {k: 0.0 for k in ("ingest", "wal_flush", "prepare", "converge", "prove",
+                               "checkpoint", "restore")}
+    epochs = []
+
+    def timed_flush(flush):
+        def run():
+            t0 = time.perf_counter()
+            flush()
+            stages["wal_flush"] += time.perf_counter() - t0
+        return run
+
+    def ingest(m, batch):
+        t0 = time.perf_counter()
+        verdicts = m.add_attestations_bulk(batch)
+        stages["ingest"] += time.perf_counter() - t0
+        return [v.reason for v in verdicts if not v.accepted]
+
+    def device_stage(m):
+        def stage(prepared):
+            on_card = m.device is not None and m.device.type == "cuda"
+            default_stream = (
+                torch.cuda.current_stream(m.device) == torch.cuda.default_stream(m.device)
+                if on_card else None
+            )
+            outcomes = {k: PLAN_OUTCOMES.value(outcome=k) for k in ("reuse", "delta", "rebuild")}
+            builds = RECOMPILES.snapshot()
+            for w in wrappers:
+                w.launches = 0
+            t0 = time.perf_counter()
+            result = m.converge_prepared(prepared, **NODE_KW)
+            seconds = time.perf_counter() - t0
+            launches = {w.__name__: w.launches for w in wrappers}
+            after = RECOMPILES.snapshot()
+            stages["converge"] += seconds
+            epochs.append(dict(
+                epoch=prepared.epoch.number, graph=prepared.graph, t0=prepared.t0,
+                plan=m.window_plan, iterations=result.iterations, scores=result.scores,
+                launches=launches, seconds=seconds, warm=prepared.t0 is not None,
+                delta_hint=prepared.delta_rows is not None,
+                outcome=[k for k, v in outcomes.items() if PLAN_OUTCOMES.value(outcome=k) > v],
+                builds={k: v - builds.get(k, 0) for k, v in after.items() if v > builds.get(k, 0)},
+                default_stream=default_stream,
+            ))
+            return result
+        return stage
+
+    def tick(m, numbers, before=None):
+        with EpochPipeline(m, device_stage=device_stage(m)) as pipe:
+            for k in numbers:
+                if before is not None and k in before:
+                    rejected = ingest(m, [before[k]])
+                    if rejected:
+                        raise RuntimeError(f"re-attestation rejected: {rejected}")
+                t0 = time.perf_counter()
+                pipe.submit(Epoch(k))
+                stages["prepare"] += time.perf_counter() - t0
+                if not pipe.drain(120):
+                    raise RuntimeError(f"epoch {k} did not finish")
+        failed = {k: repr(o.error) for k, o in pipe.outcomes.items() if o.error is not None}
+        if failed:
+            raise RuntimeError(f"epochs failed on {backend}: {failed}")
+
+    m = Manager(config)
+    m.wal = AttestationWAL(workdir / "wal")
+    m.wal.flush = timed_flush(m.wal.flush)
+    rejected = ingest(m, atts)
+    if rejected:
+        raise RuntimeError(f"attestations rejected: {rejected}")
+    tick(m, range(NODE["epochs"]), before={NODE["epochs"] - 1: reattestation})
+    last = Epoch(NODE["epochs"] - 1)
+    t0 = time.perf_counter()
+    m.calculate_proofs(last)
+    stages["prove"] = time.perf_counter() - t0
+    proof = m.get_proof(last)
+    store = CheckpointStore(workdir / "ckpt")
+    t0 = time.perf_counter()
+    store.save(
+        last, m.last_graph, m.last_scores, proof.to_raw("commitment").to_json(),
+        plan=m.window_plan, peer_hashes=m.last_peer_hashes, wal_seq=m.checkpoint_watermark(),
+        attestations=m.snapshot_attestations(),
+    )
+    m.wal.truncate_through(store.retained_wal_floor())
+    stages["checkpoint"] = time.perf_counter() - t0
+    m.wal.close()
+    fresh = Manager(config)
+    t0 = time.perf_counter()
+    report = recover(fresh, store, AttestationWAL(workdir / "wal"))
+    stages["restore"] = time.perf_counter() - t0
+    tick(fresh, [NODE["epochs"]])
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(epochs=epochs, pub_ins=proof.pub_ins, proof=proof.proof, stages=stages,
+                recovery=report, restored=fresh.get_proof(last).proof == proof.proof)
+
+
+def node_phase(wrappers, check, emit, smi) -> dict:
+    """The single-device node on the card: for the bootstrap group of 5
+    and a seeded group of 64, on ``cuda-windowed`` and on ``cuda-csr``,
+    ``run_node`` on the card (``device=None``) under a profiler trace and
+    on the CPU.  Each card epoch's scores equal a direct converge of its
+    graph from its seed on the card bit for bit, and the CPU run's within
+    L1 1e-6 at the same iterations and plan outcomes; the commitment
+    proofs are equal; each converge launched every kernel its backend
+    declares (``analysis/budget.py``) iterations times per step and no
+    other, and so does the trace; the warm delta epoch built no kernel
+    library.  Returns, per backend, each wrapper's launches over the
+    node's card converges."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.bench._timing import device_events, settle_trace
+    from protocol_tpu_torch.crypto import native as cnative
+    from protocol_tpu_torch.trust.backend import get_backend
+
+    profiled = {
+        "gather_window_kernel": "gather_windowed", "prefix_rows_kernel": "prefix_bridge",
+        "permute4_kernel": "prefix_bridge", "ds_cumsum_rows_kernel": "ds_cumsum_axis1",
+        "compensated_scan_kernel": "block_total_scan", "rowsum_tail_kernel": "rowsum_tail",
+        "gather_ds_cumsum_kernel": "gather_ds_cumsum",
+    }
+    check(cnative.available(), "the crypto runtime (native/protocol_native.cpp) did not build")
+    workdir = HERE / "build" / "chip_smoke_node"
+
+    def traced_node(fixed_set, atts, reattestation, backend):
+        """``run_node`` on the card under a profiler trace, settled before
+        the node starts (``settle_trace``), and each profiled kernel's
+        launches in the trace.  The trace is a measurement beside the
+        counters: where the profiler fails, its count says "not measured"."""
+        traced, prof = {}, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        try:
+            prof.__enter__()
+            settle_trace()
+        except Exception as exc:  # noqa: BLE001 - reported, not a check
+            traced, prof = {"not measured": repr(exc)}, None
+        try:
+            card = run_node(fixed_set, atts, reattestation, backend, None, workdir, wrappers)
+        finally:
+            if prof is not None:
+                torch.cuda.synchronize()
+                try:
+                    prof.__exit__(None, None, None)
+                except Exception as exc:  # noqa: BLE001 - reported, not a check
+                    traced, prof = {"not measured": repr(exc)}, None
+        if prof is not None:
+            for e in device_events(prof):
+                for kernel in profiled:
+                    if kernel in e.name:
+                        traced[kernel] = traced.get(kernel, 0) + 1
+        return card, traced
+
+    totals = {b: {w.__name__: 0 for w in wrappers} for b in NODE["backends"]}
+    records = {}
+    t_phase = time.perf_counter()
+    for n in NODE["groups"]:
+        t0 = time.perf_counter()
+        fixed_set, atts, reattestation = node_group(n, NODE["seed"])
+        group_seconds = time.perf_counter() - t0
+        for backend in NODE["backends"]:
+            budget = KERNEL_INVARIANTS[backend]
+            card, traced = traced_node(fixed_set, atts, reattestation, backend)
+            iterations = sum(c["iterations"] for c in card["epochs"])
+            want_traced = {
+                k: budget.launches_per_step.get(w, 0) * iterations
+                for k, w in profiled.items() if budget.launches_per_step.get(w, 0)
+            }
+            traced_ok = None if "not measured" in traced else traced == want_traced
+            cpu = run_node(fixed_set, atts, reattestation, backend, "cpu", workdir, wrappers)
+            key = f"{n}/{backend}"
+            ce, pe = card["epochs"], cpu["epochs"]
+            check(len(ce) == len(pe) == NODE["epochs"] + 1, f"{key}: epochs ran {len(ce)}, {len(pe)}")
+            direct_equal, l1, launches_ok = [], [], []
+            for c, p in zip(ce, pe):
+                b = get_backend(backend, **({"plan": c["plan"]} if backend == "cuda-windowed" else {}))
+                direct = b.converge(c["graph"], t0=c["t0"], **NODE_KW)
+                direct_equal.append(bool(np.array_equal(direct.scores, c["scores"]))
+                                    and direct.iterations == c["iterations"])
+                l1.append(float(np.abs(c["scores"] - p["scores"]).sum()))
+                want = {w.__name__: 0 for w in wrappers}
+                want.update(budget.expected_launches(c["iterations"]))
+                launches_ok.append(c["launches"] == want)
+                for w, k in c["launches"].items():
+                    totals[backend][w] += k
+            rec = dict(
+                peers=n, group_seconds=group_seconds,
+                iterations=[c["iterations"] for c in ce],
+                cpu_iterations=[p["iterations"] for p in pe],
+                plan_outcomes=[c["outcome"] for c in ce], cpu_plan_outcomes=[p["outcome"] for p in pe],
+                warm=[c["warm"] for c in ce], delta_hint=[c["delta_hint"] for c in ce],
+                l1_vs_cpu=l1, bit_equal_to_direct=direct_equal,
+                launches_per_epoch=[c["launches"] for c in ce], launches_match_budget=launches_ok,
+                traced_kernels=traced, traced_match_budget=traced_ok,
+                builds=[c["builds"] for c in ce], default_stream=[c["default_stream"] for c in ce],
+                epoch_converge_seconds=[c["seconds"] for c in ce],
+                stage_seconds=card["stages"], cpu_stage_seconds=cpu["stages"],
+                proof_equal=card["proof"] == cpu["proof"] and card["pub_ins"] == cpu["pub_ins"],
+                proof_restored=card["restored"], recovery=card["recovery"],
+            )
+            records[key] = rec
+            check(all(direct_equal), f"node {key}: an epoch differs from a direct converge: {direct_equal}")
+            check(rec["iterations"] == rec["cpu_iterations"], f"node {key}: card vs CPU iterations {rec}")
+            check(max(l1) <= 1e-6, f"node {key}: card vs CPU L1 {l1} > 1e-6")
+            check(rec["plan_outcomes"] == rec["cpu_plan_outcomes"], f"node {key}: plan outcomes differ")
+            check(rec["warm"] == [False, True, True, True], f"node {key}: warm starts {rec['warm']}")
+            # Only the windowed backend keeps a plan, so only its
+            # re-attested epoch gets a delta hint and takes the delta plan.
+            if backend == "cuda-windowed":
+                check(rec["delta_hint"] == [False, False, True, False],
+                      f"node {key}: delta hints {rec['delta_hint']}")
+                check(rec["plan_outcomes"] == [["rebuild"], ["reuse"], ["delta"], ["reuse"]],
+                      f"node {key}: plan outcomes {rec['plan_outcomes']}")
+            else:
+                check(not any(rec["delta_hint"]) and not any(rec["plan_outcomes"]),
+                      f"node {key}: a plan outcome on {backend}: {rec['plan_outcomes']}")
+            check(all(launches_ok), f"node {key}: launches {rec['launches_per_epoch']} off budget")
+            check(traced_ok is not False, f"node {key}: the trace counted {traced}")
+            check(rec["builds"][2] == {}, f"node {key}: the warm re-attested epoch built {rec['builds'][2]}")
+            check(all(rec["default_stream"]), f"node {key}: a converge left the default stream")
+            check(rec["proof_equal"] and rec["proof_restored"], f"node {key}: proofs differ")
+    emit("node", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **records)
+    return totals
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -95,7 +396,7 @@ def main() -> None:
     from protocol_tpu_torch.bench import yardsticks as ys
     from protocol_tpu_torch.bench._timing import (
         F32_OPS_PER_S, REPS, WARMUP, bound_by, bound_ms, kernel_vs_plain, same_bits, time_ms,
-        trace_ms,
+        device_events, trace_ms, trace_session,
     )
     from protocol_tpu_torch.bench.headline_converge import prepared
     from protocol_tpu_torch.models.churn import churn_cohort_dims, sender_centric_churn
@@ -121,15 +422,36 @@ def main() -> None:
     )
 
     # -- 2. build ----------------------------------------------------------
+    # The node's crypto runtime (g++) builds beside the kernels (nvcc).
+    import threading
+
+    from protocol_tpu_torch.crypto import native as cnative
+
+    crypto_build = {}
+
+    def build_crypto():
+        t = time.perf_counter()
+        try:
+            crypto_build["library"] = str(cnative.build())
+            crypto_build["ok"] = cnative.available()
+        except OSError as exc:
+            crypto_build["ok"], crypto_build["error"] = False, str(exc)
+        crypto_build["seconds"] = time.perf_counter() - t
+
+    crypto_thread = threading.Thread(target=build_crypto)
+    crypto_thread.start()
     t0 = time.perf_counter()
     report = _build.build()
     build_s = time.perf_counter() - t0
+    crypto_thread.join()
     ptxas = {
         name: [ln.strip() for ln in r["log"].splitlines()
                if "registers" in ln or "smem" in ln or "spill" in ln]
         for name, r in report.items()
     }
-    emit("build", seconds=build_s, built=sorted(report), ptxas=ptxas)
+    emit("build", seconds=build_s, built=sorted(report), ptxas=ptxas, crypto_runtime=crypto_build)
+    check(crypto_build.get("ok", False),
+          f"the crypto runtime (native/protocol_native.cpp) did not build: {crypto_build}")
 
     def k1_vs_plain(plan, args, x):
         """K1 against its plain version on one plan (a difference
@@ -151,20 +473,16 @@ def main() -> None:
         """Device time a call of ``fn`` by kernel name, in ms, from a
         ``torch.profiler`` trace over ``steps`` calls; with a dict
         ``launches``, also the kernels launched a call, by name."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace_session() as prof:
             for _ in range(steps):
                 fn()
             torch.cuda.synchronize()
         by_name, counts = {}, {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
-                counts[e.name] = counts.get(e.name, 0) + 1
+        for e in device_events(prof):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+            counts[e.name] = counts.get(e.name, 0) + 1
         if launches is not None:
             launches.update({name: c / steps for name, c in counts.items()})
         return by_name
@@ -792,6 +1110,7 @@ def main() -> None:
     kernels = [
         {
             "name": "gather_window",
+            "wrapper": "gather_windowed",
             "route": "cuda",
             "source": "protocol_tpu_torch/ops/csrc/gather_window.cu",
             "replaces": "protocol_tpu/ops/gather_window.py:318",
@@ -1013,6 +1332,9 @@ def main() -> None:
     edges = pmg.check_edges()
     emit("probe_edges", seconds=time.perf_counter() - t0, **edges)
 
+    # -- 9. node: the single-device node's epoch path ----------------------
+    node_launches = node_phase(wrappers, check, emit, smi)
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -1053,6 +1375,10 @@ def main() -> None:
             },
         }
     )
+    # Each kernel's launches over the node phase's card converges, by backend.
+    for entry in kernels:
+        wrapper = entry.get("wrapper", entry["name"])
+        entry["node_launches"] = {b: node_launches[b].get(wrapper, 0) for b in NODE["backends"]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

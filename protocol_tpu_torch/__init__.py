@@ -4,14 +4,22 @@ A port of ``protocol_tpu`` (the JAX/TPU package, kept beside it as the
 reference) to an NVIDIA H100.  Structure and names mirror the
 reference so each counterpart is easy to find:
 
-- ``trust``   — ``TrustGraph`` and the backend registry
-  (``native-cpu``, ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``,
-  ``cuda-windowed``).
+- ``trust``   — ``TrustGraph``, the backend registry (``native-cpu``,
+  ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``, ``cuda-windowed``) and
+  the exact fixed-set kernels.
 - ``ops``     — the power iteration, the dense, COO and CSR steps (the
   edge product and its block prefix in the hand-written CUDA kernel
   ``ops/csrc/gather_ds_cumsum.cu``), the host-built ``WindowPlan`` and
   the windowed step on the hand-written CUDA gather kernel
   (``ops/csrc/gather_window.cu``).
+- ``node``    — the single-device node: ``Manager`` (attestation ingest,
+  the epoch path, commitment proofs), ``EpochPipeline``,
+  ``CheckpointStore`` and ``AttestationWAL``.
+- ``crypto``, ``zk``, ``prover``, ``obs``, ``chaos``, ``parallel``,
+  ``analysis``, ``utils`` — the host modules the node needs: field,
+  Poseidon and EdDSA (with the repository's C++ runtime built at first
+  use), proofs, proof jobs, spans, metrics and the journal, fault
+  points, the peer partition and the kernel budgets.
 - ``models``  — graph and churn generators and ``EigenTrustModel``.
 - ``bench``   — the reference's gather/transpose probes on the card,
   with their hand-written CUDA kernels (``ops/csrc/take_along_axis.cu``,
@@ -30,7 +38,10 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("bench", "models", "ops", "trust")
+_SUBMODULES = (
+    "analysis", "bench", "chaos", "crypto", "models", "node", "obs", "ops", "parallel",
+    "prover", "trust", "utils", "zk",
+)
 
 
 def resolve_device(device=None):

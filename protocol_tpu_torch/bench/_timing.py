@@ -11,7 +11,9 @@ the median is taken.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
+import time
 
 import torch
 
@@ -108,34 +110,81 @@ def kernel_vs_plain(kernel, plain, *, wrapper, nbytes: int, ops: int = 0, librar
 
 #: Profiler sessions ``trace_ms`` takes at most before it gives up.
 TRACE_TRIES = 3
+#: Throwaway launches, and seconds of waiting after them, with which a
+#: profiler session starts before the traced work.  The profiler (torch
+#: 2.11 on an H100) can lose the records of a session's first launches
+#: and copies; ``bench/probe_trace_start.py`` measures how often, and how
+#: many, with and without them.
+TRACE_PRIMER_LAUNCHES = 64
+TRACE_SETTLE_S = 0.2
+#: The ``record_function`` range of ``settle_trace`` in a trace.
+SETTLE_RANGE = "settle_trace"
+
+
+def settle_trace() -> None:
+    """Start a profiler session that has just started with launches it
+    may lose: ``TRACE_PRIMER_LAUNCHES`` small adds on the current card,
+    a synchronize, then a wait of ``TRACE_SETTLE_S``, all inside a
+    ``SETTLE_RANGE`` range (``settled_after``)."""
+    with torch.profiler.record_function(SETTLE_RANGE):
+        x = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+        for _ in range(TRACE_PRIMER_LAUNCHES):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_SETTLE_S)
+
+
+def settled_after(prof) -> float:
+    """The trace time (us) from which a session's records are the traced
+    work's: the middle of ``settle_trace``'s wait, when the card is idle,
+    so that the primer's records lie before it and the work's after it
+    whatever the skew between the host's and the card's clocks, up to
+    half the wait.  ``-inf`` in a session that did not settle."""
+    ends = [e.time_range.end for e in prof.events() if e.name == SETTLE_RANGE]
+    return max(ends) - TRACE_SETTLE_S * 1e6 / 2 if ends else float("-inf")
+
+
+def device_events(prof) -> list:
+    """The card's records (kernels and copies) of a session's traced
+    work: those that start after ``settled_after``."""
+    from torch.autograd import DeviceType
+
+    after = settled_after(prof)
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and e.time_range.start > after]
+
+
+@contextlib.contextmanager
+def trace_session():
+    """A ``torch.profiler`` session over the CPU and the card, settled
+    (``settle_trace``) before it yields the profiler; read its work's
+    device records with ``device_events``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle_trace()
+        yield prof
 
 
 def trace_ms(fn, calls: int = REPS) -> float | None:
     """Device time in ms of one call of ``fn``, a call that launches one
-    kernel: the median duration of that kernel's launches in a
-    ``torch.profiler`` trace over ``calls`` calls after one untimed call.
-    Without the launch or the gaps between kernels.
-
-    After the port's other profiler sessions in one process, a trace may
-    hold only some of the launches, or none (seen on an H100 with torch
-    2.11), while each launch it holds has its true duration.  So the
-    kernel is the name launched most often in the trace, the median
-    keeps out a stray event, and a trace with no device event is taken
-    again, up to ``TRACE_TRIES`` times.  None where none held one."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel: the median duration of that kernel's launches in a settled
+    ``torch.profiler`` trace (``trace_session``) over ``calls`` calls
+    after one untimed call.  Without the launch or the gaps between
+    kernels.  The kernel is the name launched most often in the trace,
+    the median keeps out a stray event, and a trace with no device event
+    is taken again, up to ``TRACE_TRIES`` times.  None where none held
+    one."""
     fn()
     torch.cuda.synchronize()
     for _ in range(TRACE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with trace_session() as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         by_name: dict[str, list[float]] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        for e in device_events(prof):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
         if by_name:
             return statistics.median(max(by_name.values(), key=len)) / 1e3
     return None

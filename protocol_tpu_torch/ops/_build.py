@@ -120,6 +120,22 @@ BENCH_KERNELS = (
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+#: Per source, how many times this process compiled its library or
+#: loaded it for the first time (``obs/watchers.py::RecompileTracker``
+#: diffs these around each epoch's converge).
+_LOADS: dict[str, int] = {}
+
+
+def load_counts() -> dict[str, int]:
+    """Compiles and first loads so far in this process, by source."""
+    with _COUNT_LOCK:
+        return dict(_LOADS)
+
+
+def _count(name: str) -> None:
+    with _COUNT_LOCK:
+        _LOADS[name] = _LOADS.get(name, 0) + 1
 
 
 def _nvcc() -> str:
@@ -172,6 +188,7 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
         os.replace(tmp, so)
+        _count(name)
         report[name] = {"seconds": seconds, "log": out}
     return report
 
@@ -186,6 +203,7 @@ def load(name: str) -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = SIGNATURES[name]
             _LIBS[name] = lib
+            _count(name)
         return lib
 
 

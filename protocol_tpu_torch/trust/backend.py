@@ -17,7 +17,10 @@ Port of ``protocol_tpu/trust/backend.py``'s single-device ladder:
 
 Each backend but ``native-cpu`` runs on ``device``: ``None`` means CUDA
 and raises where there is no card; ``device="cpu"`` runs the plain
-versions (the tests).
+versions (the tests).  Each ``cuda-*`` backend declares the hand-written
+kernels one of its power steps launches (``analysis/budget.py``), and
+the converges, plan outcomes and plan builds land on the ``obs`` spans,
+metrics and journal under the reference's names.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..analysis.budget import KernelBudget, declare
+from ..obs import TRACER
+from ..obs.journal import JOURNAL
+from ..obs.metrics import PLAN_OUTCOMES, PLAN_REBUILDS, PLAN_REUSES
 from ..ops.gather_window import (
     PLAN_VERSION,
     WindowPlan,
@@ -254,17 +261,18 @@ class SparseTorchBackend(TrustBackend):
         w, dangling = g.row_normalized()
         g = TrustGraph(g.n, g.src, g.dst, w, graph.pre_trusted).sorted_by_dst()
         dev = self.device
-        out = converge_sparse(
-            torch.from_numpy(g.src).to(dev),
-            torch.from_numpy(g.dst).to(dev),
-            torch.from_numpy(g.weight).to(dev),
-            *self._vectors(graph, dangling, t0),
-            n=g.n,
-            alpha=alpha,
-            tol=tol,
-            max_iter=max_iter,
-            record_residuals=record_residuals,
-        )
+        with TRACER.span("converge", backend=self.name):
+            out = converge_sparse(
+                torch.from_numpy(g.src).to(dev),
+                torch.from_numpy(g.dst).to(dev),
+                torch.from_numpy(g.weight).to(dev),
+                *self._vectors(graph, dangling, t0),
+                n=g.n,
+                alpha=alpha,
+                tol=tol,
+                max_iter=max_iter,
+                record_residuals=record_residuals,
+            )
         return _result(out, self.name, record_residuals)
 
 
@@ -279,16 +287,17 @@ class CsrTorchBackend(TrustBackend):
         w, dangling = g.row_normalized()
         g = TrustGraph(g.n, g.src, g.dst, w, graph.pre_trusted).sorted_by_dst()
         dev = self.device
-        out = converge_csr(
-            torch.from_numpy(g.src).to(dev),
-            torch.from_numpy(g.row_ptr_by_dst()).to(dev),
-            torch.from_numpy(g.weight).to(dev),
-            *self._vectors(graph, dangling, t0),
-            alpha=alpha,
-            tol=tol,
-            max_iter=max_iter,
-            record_residuals=record_residuals,
-        )
+        with TRACER.span("converge", backend=self.name):
+            out = converge_csr(
+                torch.from_numpy(g.src).to(dev),
+                torch.from_numpy(g.row_ptr_by_dst()).to(dev),
+                torch.from_numpy(g.weight).to(dev),
+                *self._vectors(graph, dangling, t0),
+                alpha=alpha,
+                tol=tol,
+                max_iter=max_iter,
+                record_residuals=record_residuals,
+            )
         return _result(out, self.name, record_residuals)
 
 
@@ -299,7 +308,9 @@ class WindowedTorchBackend(TrustBackend):
     graph fingerprint; on a miss with a churn hint (``delta_rows``: the
     source peers whose out-edges changed since the cached plan's graph)
     it is delta-updated instead of rebuilt.  ``plan_outcomes`` counts
-    each converge's ``reuse`` / ``delta`` / ``rebuild``."""
+    this instance's ``reuse`` / ``delta`` / ``rebuild`` outcomes, which
+    also land on ``eigentrust_plan_outcomes_total{outcome}`` and the
+    journal."""
 
     name = "cuda-windowed"
 
@@ -316,6 +327,11 @@ class WindowedTorchBackend(TrustBackend):
         #: Plan outcomes of this backend's converges.
         self.plan_outcomes = {"reuse": 0, "delta": 0, "rebuild": 0}
 
+    def _outcome(self, outcome: str, **fields) -> None:
+        self.plan_outcomes[outcome] += 1
+        PLAN_OUTCOMES.inc(outcome=outcome)
+        JOURNAL.record("plan", outcome=outcome, backend=self.name, **fields)
+
     def _resolve_plan(self, g: TrustGraph, w: np.ndarray, fp: str) -> WindowPlan:
         """Reuse, delta-update, or rebuild the cached plan for the
         normalized graph — all on the host, before any device work."""
@@ -323,15 +339,21 @@ class WindowedTorchBackend(TrustBackend):
         self.delta_rows = None
         valid = plan is not None and getattr(plan, "version", 0) == PLAN_VERSION
         if valid and plan.fingerprint == fp:
-            self.plan_outcomes["reuse"] += 1
+            PLAN_REUSES.inc()
+            self._outcome("reuse")
             return plan
         if valid and rows is not None:
-            delta = try_plan_delta(plan, g.src, g.dst, w, n=g.n, rows=rows, fingerprint=fp)
+            with TRACER.span("plan", backend=self.name, reason="delta"):
+                delta = try_plan_delta(plan, g.src, g.dst, w, n=g.n, rows=rows, fingerprint=fp)
             if delta is not None:
-                self.plan_outcomes["delta"] += 1
+                self._outcome("delta", rows=int(rows.size))
                 return delta
-        self.plan_outcomes["rebuild"] += 1
-        return build_window_plan(g.src, g.dst, w, n=g.n)
+        reason = "cold" if plan is None else ("stale-layout" if not valid else "fingerprint-miss")
+        with TRACER.span("plan", backend=self.name, reason=reason):
+            plan = build_window_plan(g.src, g.dst, w, n=g.n)
+        PLAN_REBUILDS.inc()
+        self._outcome("rebuild", reason=reason)
+        return plan
 
     def converge(self, graph, *, alpha=0.0, tol=1e-6, max_iter=50,
                  record_residuals=True, t0=None):
@@ -340,18 +362,35 @@ class WindowedTorchBackend(TrustBackend):
         fp = graph_fingerprint(g.n, g.src, g.dst, w)
         plan = self._resolve_plan(g, w, fp)
         self.plan = self.last_plan = plan
-        out = converge_windowed(
-            *plan.device_args(self.device),
-            *self._vectors(graph, dangling, t0),
-            n_rows=plan.n_rows,
-            table_entries=plan.table_entries,
-            alpha=alpha,
-            tol=tol,
-            max_iter=max_iter,
-            record_residuals=record_residuals,
-        )
+        with TRACER.span("converge", backend=self.name):
+            out = converge_windowed(
+                *plan.device_args(self.device),
+                *self._vectors(graph, dangling, t0),
+                n_rows=plan.n_rows,
+                table_entries=plan.table_entries,
+                alpha=alpha,
+                tol=tol,
+                max_iter=max_iter,
+                record_residuals=record_residuals,
+            )
         return _result(out, self.name, record_residuals)
 
+
+# The hand-written kernels one power step of each card backend launches,
+# by the wrapper that counts them (each wrapper's ``launches``).
+_CSR_STEP = {"gather_ds_cumsum": 1, "block_total_scan": 1, "rowsum_tail": 1}
+declare(KernelBudget("cuda-dense", {}, notes="torch.mv steps; no hand-written kernel"))
+declare(KernelBudget("cuda-sparse", dict(_CSR_STEP), notes="the CSR step over the dst segments"))
+declare(KernelBudget("cuda-csr", dict(_CSR_STEP)))
+declare(
+    KernelBudget(
+        "cuda-windowed",
+        {
+            "gather_windowed": 1, "prefix_bridge": 1, "ds_cumsum_axis1": 1,
+            "block_total_scan": 1, "rowsum_tail": 1,
+        },
+    )
+)
 
 _BACKENDS = {
     "native-cpu": NativeCPUBackend,

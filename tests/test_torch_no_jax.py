@@ -57,7 +57,35 @@ def test_importing_every_port_module_loads_no_jax():
     )
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "protocol_tpu_torch.ops.gather_window" in loaded
+    assert "protocol_tpu_torch.node.manager" in loaded
     assert [m for m in loaded if forbidden(m)] == []
+
+
+def test_port_modules_walk_the_node_and_its_host_modules():
+    """The import check above covers every subpackage the node brought,
+    not only the kernels' modules."""
+    mods = set(port_modules())
+    for sub in ("analysis", "chaos", "crypto", "node", "obs", "parallel", "prover", "utils", "zk"):
+        assert f"protocol_tpu_torch.{sub}" in mods, sub
+    for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
+                "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs"):
+        assert f"protocol_tpu_torch.{mod}" in mods, mod
+
+
+def test_importing_the_node_builds_no_library():
+    """The crypto runtime, like the kernels, is built at first use only."""
+    from protocol_tpu_torch.crypto import native as cnative
+
+    code = (
+        "import protocol_tpu_torch.node.manager, protocol_tpu_torch.crypto.native as c\n"
+        "print(c._lib is None)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+        check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "True"
+    assert cnative.library_path().parent == REPO / "build" / "protocol_tpu_torch"
 
 
 @pytest.mark.parametrize(
