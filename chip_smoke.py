@@ -27,7 +27,15 @@ beside them and one empty launch, and holds the kernel route of the
 windowed, CSR and COO steps against their plain route, bit for bit.
 Then the card against the CPU, a churned epoch replay against a cold
 converge, and BASELINE ladder configs 1-3 through ``native-cpu``,
-``cuda-dense`` and ``cuda-sparse`` (``backends``).  Last it runs the
+``cuda-dense`` and ``cuda-sparse`` (``backends``).  Between the two,
+the sharded converge (``sharded``): ``cuda-sharded:cuda-csr`` and
+``:cuda-windowed`` on 4 ranks (processes) that share the card at the
+headline and on 8 at 65,536 peers, their all-reduce on ``gloo`` (NCCL
+refuses two ranks on one card), held against the single-card converges,
+the ranks against each other bit for bit, each rank's launches and
+all-reduces against the declared budgets, each shard's kernel route
+against its plain route, and the 8 card ranks against 8 CPU ranks.
+Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
 versions and library calls bit for bit, with event and trace times, K2
@@ -47,7 +55,8 @@ Every phase prints one JSON line.  Before the last line come the card's
 K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
 for K9, the probes phase for
 K2-K4 — on the main path, on the node's card converges by backend
-(``node_launches``), agreement with the plain version, its
+(``node_launches``), on each rank of the sharded headline converges by
+backend (``sharded_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -375,6 +384,175 @@ def node_phase(wrappers, check, emit, smi) -> dict:
             check(rec["proof_equal"] and rec["proof_restored"], f"node {key}: proofs differ")
     emit("node", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **records)
     return totals
+
+
+SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
+               small_kw=dict(alpha=0.1, tol=1e-6, max_iter=60), timeout_s=600)
+
+
+def sharded_phase(graph, single, check, emit, smi) -> dict:
+    """The sharded converge (``cuda-sharded:cuda-csr`` and
+    ``:cuda-windowed``) on ranks that share the one card, ``gloo``
+    all-reducing CUDA tensors through the host (NCCL refuses two ranks on
+    one device).  The headline graph and its window plan are built once
+    here and mapped by every rank (``share_arrays``); the plan is each
+    rank's candidate, so no rank rebuilds it.
+
+    4 ranks at the headline (tol 0, 40 iterations): every rank's scores
+    the same bits; each kernel within L1 1e-5 of the single-card converge
+    of its formulation (``single``: scores and peak memory by kernel) and
+    of the other kernel; per rank, the launches of the declared budget
+    times 40 and no other, 40 all-reduces of 4n bytes
+    (``COMM_INVARIANTS``), peak memory under the single-card converge's;
+    then a step's kernel route against its plain route on every shard,
+    bit for bit, and a step's wall time split into the shard's kernels,
+    the all-reduce and ``damp``, with rank 0's profiler trace.  8 ranks
+    at 65,536 peers (tol 1e-6): the same checks of bits, launches and
+    all-reduces, the routes, and the card against the same 8 ranks on the
+    CPU, the same iterations and L1 ≤ 1e-6.  Returns each rank's headline
+    launches by kernel, for the ``kernels`` line."""
+    import shutil
+
+    import numpy as np
+
+    from protocol_tpu_torch.analysis.budget import COMM_INVARIANTS, KERNEL_INVARIANTS
+    from protocol_tpu_torch.models.graphs import scale_free
+    from protocol_tpu_torch.ops import gather_window as gw
+    from protocol_tpu_torch.parallel import dryrun
+    from protocol_tpu_torch.parallel.launch import run_ranks, share_arrays
+
+    kernels = ("cuda-csr", "cuda-windowed")
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    gd = graph.drop_self_edges()
+    w, _ = gd.row_normalized()
+    plan = gw.build_window_plan(gd.src, gd.dst, w, n=gd.n)
+    plan_seconds = time.perf_counter() - t0
+    graph_paths = share_arrays(work / "graph", dict(
+        n=np.int64(graph.n), src=graph.src, dst=graph.dst, weight=graph.weight,
+        pre_trusted=graph.pre_trusted,
+    ))
+    plan_paths = share_arrays(work / "plan", plan.to_arrays())
+    del gd, w, plan
+    stage_seconds = time.perf_counter() - t0
+
+    def launch(size, jobs, device="cuda"):
+        t0 = time.perf_counter()
+        out = run_ranks(size, dryrun.jobs_rank, jobs, backend="gloo", device=device,
+                        timeout_s=SHARDED["timeout_s"])
+        return out, time.perf_counter() - t0
+
+    def converged(results, kw, where, on_card=True):
+        """Checks common to both sizes and devices (on the CPU the plain
+        versions launch no kernel); per kernel, rank 0's record."""
+        head = {}
+        for kernel in kernels:
+            recs = [r[0][kernel] for r in results]
+            head[kernel] = r0 = recs[0]
+            it, n = r0["iterations"], r0["scores"].shape[0]
+            check(all(np.array_equal(r["scores"], r0["scores"]) for r in recs),
+                  f"sharded {where} {kernel}: the ranks' scores differ")
+            check(all(r["iterations"] == it for r in recs), f"sharded {where} {kernel}: iterations differ")
+            check(kw["tol"] > 0 or it == kw["max_iter"], f"sharded {where} {kernel}: ran {it} steps")
+            want = dict.fromkeys(recs[0]["launches"], 0)
+            if on_card:
+                want.update(KERNEL_INVARIANTS[f"cuda-sharded:{kernel}"].expected_launches(it))
+            comm = COMM_INVARIANTS[f"cuda-sharded:{kernel}"].expected(it, n)
+            for rank, r in enumerate(recs):
+                check(r["launches"] == want,
+                      f"sharded {where} {kernel} rank {rank} launched {r['launches']}, expected {want}")
+                check(r["all_reduce"] == {"calls": comm["all_reduce_sum"], "bytes": comm["bytes"]},
+                      f"sharded {where} {kernel} rank {rank} all-reduced {r['all_reduce']}, "
+                      f"expected {comm}")
+            check(bool(np.isfinite(r0["scores"]).all()) and abs(float(r0["scores"].sum()) - 1.0) < 1e-3,
+                  f"sharded {where} {kernel}: non-finite scores or a sum off 1")
+        check(all(r[0]["loaded_forbidden"] == [] for r in results),
+              f"sharded {where}: a rank loaded jax or the reference package")
+        l1 = float(np.abs(head["cuda-windowed"]["scores"] - head["cuda-csr"]["scores"]).sum())
+        check(l1 <= 1e-5, f"sharded {where}: windowed vs CSR L1 {l1} > 1e-5")
+        return head, l1
+
+    def routes(results, where):
+        eq = [r[1][k]["routes_equal"] for r in results for k in kernels]
+        check(all(all(e.values()) for e in eq),
+              f"sharded {where}: a shard's kernel route differs from its plain route: {eq}")
+        return {k: [r[1][k]["routes_equal"] for r in results] for k in kernels}
+
+    # -- headline: 4 ranks, 1M / 50M, 40 steps, both kernels ---------------
+    kw = SHARDED["kw"]
+    results, head_seconds = launch(SHARDED["ranks"], [
+        (dryrun.converge_rank, (graph_paths, kernels, kw, plan_paths)),
+        (dryrun.step_rank, (graph_paths, kernels, plan_paths, 20, True)),
+    ])
+    head, head_l1 = converged(results, kw, "headline")
+    record = {"ranks": SHARDED["ranks"], "backend": "gloo", "peers": graph.n, "edges": graph.nnz,
+              "iterations": kw["max_iter"], "plan_seconds": plan_seconds,
+              "stage_seconds": stage_seconds, "launch_seconds": head_seconds,
+              "windowed_vs_csr_l1": head_l1, "routes_equal": routes(results, "headline")}
+    for kernel in kernels:
+        recs = [r[0][kernel] for r in results]
+        l1 = float(np.abs(head[kernel]["scores"] - single[kernel]["scores"]).sum())
+        peaks = [r["max_memory_allocated"] for r in recs]
+        record[kernel] = {
+            "l1_vs_single_card": l1,
+            "converge_seconds": [r["converge_seconds"] for r in recs],
+            "backend_seconds": [r["seconds"] for r in recs],
+            "plan_span_seconds": [r["plan_seconds"] for r in recs],
+            "plan_outcomes": [r["plan_outcome"] for r in recs],
+            "max_memory_allocated": peaks,
+            "single_card_max_memory_allocated": single[kernel]["peak"],
+            "single_card_seconds": single[kernel]["seconds"],
+            "step_wall_ms": [r[1][kernel]["wall_ms"] for r in results],
+            "step_device_ms_rank0": results[0][1][kernel]["device_ms"],
+            "step_device_split_ms_rank0": results[0][1][kernel]["device_split_ms"],
+            "shard_runs": [r[1][kernel]["runs"] for r in results],
+            "shard_edges": [r[1][kernel]["edges"] for r in results],
+        }
+        check(l1 <= 1e-5, f"sharded headline {kernel} vs the single-card converge: L1 {l1} > 1e-5")
+        check(max(peaks) < single[kernel]["peak"],
+              f"sharded headline {kernel}: a rank's peak {max(peaks)} is not under the single "
+              f"card's {single[kernel]['peak']}")
+        if kernel == "cuda-windowed":
+            check(all(r["plan_outcome"] == {"reuse": 1, "delta": 0, "rebuild": 0} and r["plan_reused"]
+                      for r in recs), f"sharded headline: a rank did not reuse the plan: "
+                      f"{[r['plan_outcome'] for r in recs]}")
+    sharded_launches = {
+        f"cuda-sharded:{k}": [r[0][k]["launches"] for r in results] for k in kernels
+    }
+    del results
+    shutil.rmtree(work, ignore_errors=True)
+
+    # -- 65,536 peers: 8 ranks on the card and on the CPU ------------------
+    small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
+    kw = SHARDED["small_kw"]
+    card, card_seconds = launch(SHARDED["small_ranks"], [
+        (dryrun.converge_rank, (small, kernels, kw)),
+        (dryrun.step_rank, (small, kernels, None, 10, False)),
+    ])
+    cpu, cpu_seconds = launch(SHARDED["small_ranks"], [(dryrun.converge_rank, (small, kernels, kw))],
+                              device="cpu")
+    on_card, card_l1 = converged(card, kw, "65k card")
+    on_cpu, cpu_l1 = converged(cpu, kw, "65k cpu", on_card=False)
+    small_rec = {"ranks": SHARDED["small_ranks"], "peers": small.n, "edges": small.nnz,
+                 "card_seconds": card_seconds, "cpu_seconds": cpu_seconds,
+                 "windowed_vs_csr_l1": {"card": card_l1, "cpu": cpu_l1},
+                 "routes_equal": routes(card, "65k")}
+    for kernel in kernels:
+        l1 = float(np.abs(on_card[kernel]["scores"] - on_cpu[kernel]["scores"]).sum())
+        small_rec[kernel] = {
+            "iterations": on_card[kernel]["iterations"], "cpu_iterations": on_cpu[kernel]["iterations"],
+            "card_vs_cpu_l1": l1, "converge_seconds": on_card[kernel]["converge_seconds"],
+            "step_wall_ms_rank0": card[0][1][kernel]["wall_ms"],
+        }
+        check(on_card[kernel]["iterations"] == on_cpu[kernel]["iterations"],
+              f"sharded 65k {kernel}: card and CPU ran {on_card[kernel]['iterations']} and "
+              f"{on_cpu[kernel]['iterations']} iterations")
+        check(l1 <= 1e-6, f"sharded 65k {kernel}: card vs CPU L1 {l1} > 1e-6")
+    emit("sharded", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, headline=record,
+         small=small_rec)
+    return sharded_launches
 
 
 def main() -> None:
@@ -1172,6 +1350,11 @@ def main() -> None:
         f"the card converge's {it} iterations launched {card_launches}",
     )
 
+    # -- 5b. sharded: the sharded converge on ranks sharing the card -------
+    single = {"cuda-windowed": {"scores": scores, "peak": peak, "seconds": seconds},
+              "cuda-csr": {"scores": csr_scores, "peak": csr_peak, "seconds": csr_seconds}}
+    sharded_launches = sharded_phase(graph, single, check, emit, smi)
+
     # -- 6. epochs: cold + churned epochs at 1% churn ----------------------
     rng = np.random.default_rng(HEADLINE["seed"])
     cur = graph.drop_self_edges()
@@ -1375,10 +1558,14 @@ def main() -> None:
             },
         }
     )
-    # Each kernel's launches over the node phase's card converges, by backend.
+    # Each kernel's launches over the node phase's card converges, by
+    # backend, and over the sharded headline converges, by backend and rank.
     for entry in kernels:
         wrapper = entry.get("wrapper", entry["name"])
         entry["node_launches"] = {b: node_launches[b].get(wrapper, 0) for b in NODE["backends"]}
+        entry["sharded_launches"] = {
+            b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()
+        }
     print(json.dumps({"kernels": kernels}), flush=True)
     print(
         json.dumps(

@@ -5,8 +5,12 @@ reference) to an NVIDIA H100.  Structure and names mirror the
 reference so each counterpart is easy to find:
 
 - ``trust``   — ``TrustGraph``, the backend registry (``native-cpu``,
-  ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``, ``cuda-windowed``) and
+  ``cuda-dense``, ``cuda-sparse``, ``cuda-csr``, ``cuda-windowed``,
+  ``cuda-sharded:cuda-csr`` and ``cuda-sharded:cuda-windowed``) and
   the exact fixed-set kernels.
+- ``parallel`` — the sharded converge over the ranks of a
+  ``torch.distributed`` group (``mesh``, ``launch``, ``sharded``, the
+  ``dryrun`` and its rank programs) and the peer partition.
 - ``ops``     — the power iteration, the dense, COO and CSR steps (the
   edge product and its block prefix in the hand-written CUDA kernel
   ``ops/csrc/gather_ds_cumsum.cu``), the host-built ``WindowPlan`` and
@@ -15,11 +19,11 @@ reference so each counterpart is easy to find:
 - ``node``    — the single-device node: ``Manager`` (attestation ingest,
   the epoch path, commitment proofs), ``EpochPipeline``,
   ``CheckpointStore`` and ``AttestationWAL``.
-- ``crypto``, ``zk``, ``prover``, ``obs``, ``chaos``, ``parallel``,
-  ``analysis``, ``utils`` — the host modules the node needs: field,
-  Poseidon and EdDSA (with the repository's C++ runtime built at first
-  use), proofs, proof jobs, spans, metrics and the journal, fault
-  points, the peer partition and the kernel budgets.
+- ``crypto``, ``zk``, ``prover``, ``obs``, ``chaos``, ``analysis``,
+  ``utils`` — the host modules the node needs: field, Poseidon and
+  EdDSA (with the repository's C++ runtime built at first use), proofs,
+  proof jobs, spans, metrics and the journal, fault points, and the
+  kernel and communication budgets.
 - ``models``  — graph and churn generators and ``EigenTrustModel``.
 - ``bench``   — the reference's gather/transpose probes on the card,
   with their hand-written CUDA kernels (``ops/csrc/take_along_axis.cu``,

@@ -22,7 +22,7 @@ class EigenTrustModel:
     alpha: float = 0.1
     tol: float = 1e-6
     max_iter: int = 50
-    backend: str = "cuda-windowed"
+    backend: str = "cuda-sparse"
     device: str | None = None
     backend_kwargs: dict = field(default_factory=dict)
 

@@ -29,7 +29,7 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 
 from .. import chaos, resolve_device
-from ..analysis.budget import HOST_BACKENDS, KERNEL_INVARIANTS
+from ..analysis.budget import COMM_INVARIANTS, HOST_BACKENDS, KERNEL_INVARIANTS
 from ..crypto import calculate_message_hash, group_pks_hash, message_hash_batch
 from ..crypto.eddsa import PublicKey, sign, verify as verify_sig
 from ..obs import TRACER
@@ -77,8 +77,11 @@ class ManagerConfig:
     fixed_set: list[tuple[str, str]] = dc_field(default_factory=lambda: list(FIXED_SET))
     #: TrustBackend for the open-graph convergence (trust/backend.py
     #: ladder: native-cpu | cuda-dense | cuda-sparse | cuda-csr |
-    #: cuda-windowed).  cuda-windowed reuses the manager's cached
-    #: WindowPlan across epochs.
+    #: cuda-windowed | cuda-sharded[:cuda-csr|:cuda-windowed]).
+    #: cuda-windowed and cuda-sharded:cuda-windowed reuse the manager's
+    #: cached WindowPlan across epochs.  cuda-sharded runs where this
+    #: process is a rank of an initialized torch.distributed group:
+    #: each rank runs its own Manager on the same inputs.
     backend: str = "native-cpu"
     #: Device of the card backends: None means the card (and raises
     #: where there is none); "cpu" runs their plain versions.  The
@@ -164,6 +167,12 @@ class PreparedEpoch:
     wal_seq: int | None = None
 
 
+def _budget_key(backend: str) -> str:
+    """The name a backend's budgets are declared under: plain
+    ``cuda-sharded`` is the ``cuda-sharded:cuda-csr`` composite."""
+    return "cuda-sharded:cuda-csr" if backend == "cuda-sharded" else backend
+
+
 class Manager:
     """In-memory attestation store keyed by Poseidon(pk); per-epoch score
     + proof computation with a proof cache (manager/mod.rs:72-78)."""
@@ -226,6 +235,18 @@ class Manager:
                 import torch
 
                 self.device = torch.device("cuda", torch.cuda.current_device())
+        # Comm-budget check at config time (the kernel-budget analog runs
+        # per converge): a sharded backend without a COMM_INVARIANTS entry
+        # runs with its collectives and their bytes unpinned.  Its
+        # declarations land with parallel/sharded.py, which
+        # trust/backend.py imports.
+        comm_key = _budget_key(self.config.backend)
+        if comm_key.startswith("cuda-sharded") and comm_key not in COMM_INVARIANTS:
+            logger.warning(
+                "sharded trust backend %r has no COMM_INVARIANTS declaration; "
+                "its collectives are not pinned",
+                self.config.backend,
+            )
         #: Senders whose attestation changed since the window plan last
         #: advanced — the delta-plan churn source.  Accumulates across
         #: failed epochs; cleared per successful converge.
@@ -737,7 +758,7 @@ class Manager:
         configured TrustBackend, seeded warm and with the plan cache
         handed off through :meth:`_plan_cache`."""
         graph = prepared.graph
-        key = self.config.backend
+        key = _budget_key(self.config.backend)
         backend = (
             get_backend(key)
             if key in HOST_BACKENDS
@@ -752,7 +773,7 @@ class Manager:
             logger.warning(
                 "trust backend %r has no KERNEL_INVARIANTS declaration; "
                 "its kernel launch pattern is not pinned",
-                key,
+                self.config.backend,
             )
         # Kernel-build watch: a steady-state delta epoch (warm seed +
         # delta-updated plan) runs kernels the epochs before it loaded,

@@ -14,6 +14,10 @@ Port of ``protocol_tpu/trust/backend.py``'s single-device ladder:
   CUDA windowed gather (``ops.gather_window.converge_windowed``), with
   the host-built ``WindowPlan`` cached and revalidated by graph
   fingerprint, delta-updated from a churn hint, or rebuilt.
+- ``cuda-sharded[:cuda-csr|:cuda-windowed]``  the CSR or the windowed
+  step over this rank's shard, completed by one all-reduce a step
+  (``parallel.sharded.converge_sharded``), in a rank of an initialized
+  ``torch.distributed`` group; plain ``cuda-sharded`` is ``:cuda-csr``.
 
 Each backend but ``native-cpu`` runs on ``device``: ``None`` means CUDA
 and raises where there is no card; ``device="cpu"`` runs the plain
@@ -46,6 +50,13 @@ from ..ops.gather_window import (
 )
 from ..ops.dense import converge_dense
 from ..ops.sparse import converge_csr, converge_sparse
+from ..parallel.mesh import default_mesh
+from ..parallel.sharded import (
+    SHARDED_KERNELS,
+    ShardedTrustProblem,
+    ShardedWindowPlan,
+    converge_sharded,
+)
 from .graph import TrustGraph
 
 
@@ -376,6 +387,70 @@ class WindowedTorchBackend(TrustBackend):
         return _result(out, self.name, record_residuals)
 
 
+class ShardedTorchBackend(TrustBackend):
+    """Convergence over the ranks of a process group, kernel-selectable
+    (``parallel/sharded.py::SHARDED_KERNELS``): ``cuda-csr`` shards the
+    dst-sorted edge list, ``cuda-windowed`` the window plan's rows, with
+    the ``WindowPlan`` cached, revalidated, delta-updated or rebuilt as
+    ``cuda-windowed`` does (``plan``/``last_plan``/``delta_rows`` carry
+    it to and from the node's checkpoints).
+
+    Every rank constructs its own backend and converges the same graph.
+    ``mesh`` is the rank's ``ShardGroup``; None takes the initialized
+    default group at converge (``default_mesh``, raising where there is
+    none) on this backend's ``device``."""
+
+    name = "cuda-sharded"
+
+    def __init__(self, mesh=None, kernel: str = "cuda-csr", device=None):
+        if kernel not in SHARDED_KERNELS:
+            raise ValueError(
+                f"unknown sharded kernel {kernel!r}; available: {sorted(SHARDED_KERNELS)}"
+            )
+        super().__init__(mesh.device if mesh is not None and device is None else device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's device is {mesh.device}, not {self.device}")
+        self.mesh = mesh
+        self.kernel = kernel
+        #: Candidate WindowPlan to reuse (cuda-windowed kernel only).
+        self.plan: WindowPlan | None = None
+        #: The plan the last converge actually used (for persistence).
+        self.last_plan: WindowPlan | None = None
+        #: Churn hint consumed by the next converge, as ``cuda-windowed``'s.
+        self.delta_rows: np.ndarray | None = None
+        #: Plan outcomes of this backend's converges.
+        self.plan_outcomes = {"reuse": 0, "delta": 0, "rebuild": 0}
+
+    def converge(self, graph, *, alpha=0.0, tol=1e-6, max_iter=50,
+                 record_residuals=True, t0=None):
+        mesh = self.mesh if self.mesh is not None else default_mesh(device=self.device)
+        name = self.name if self.kernel == "cuda-csr" else f"{self.name}:{self.kernel}"
+        problem: ShardedTrustProblem | ShardedWindowPlan
+        if self.kernel == "cuda-windowed":
+            candidate, rows = self.plan, self.delta_rows
+            self.delta_rows = None
+            with TRACER.span("plan", backend=name):
+                problem = ShardedWindowPlan.build(graph, mesh, plan=candidate, delta_rows=rows)
+            outcome = problem.plan_outcome
+            if outcome == "reuse":
+                PLAN_REUSES.inc()
+            elif outcome == "rebuild":
+                PLAN_REBUILDS.inc()
+            PLAN_OUTCOMES.inc(outcome=outcome)
+            JOURNAL.record("plan", outcome=outcome, backend=name)
+            self.plan_outcomes[outcome] += 1
+            self.plan = self.last_plan = problem.plan
+        else:
+            problem = ShardedTrustProblem.build(graph, mesh)
+        start = None if t0 is None else _initial_vector(t0, graph.pre_trust_vector())
+        with TRACER.span("converge", backend=name):
+            out = converge_sharded(
+                problem, alpha=alpha, tol=tol, max_iter=max_iter,
+                record_residuals=record_residuals, t0=start,
+            )
+        return _result(out, name, record_residuals)
+
+
 # The hand-written kernels one power step of each card backend launches,
 # by the wrapper that counts them (each wrapper's ``launches``).
 _CSR_STEP = {"gather_ds_cumsum": 1, "block_total_scan": 1, "rowsum_tail": 1}
@@ -398,20 +473,37 @@ _BACKENDS = {
     "cuda-sparse": SparseTorchBackend,
     "cuda-csr": CsrTorchBackend,
     "cuda-windowed": WindowedTorchBackend,
+    "cuda-sharded": ShardedTorchBackend,
 }
 
 
 def registered_backends() -> list[str]:
-    """Every constructible backend name."""
-    return list(_BACKENDS)
+    """Every constructible backend name, the sharded composites expanded
+    (plain ``cuda-sharded`` is ``cuda-sharded:cuda-csr``)."""
+    names: list[str] = []
+    for base in _BACKENDS:
+        if base == "cuda-sharded":
+            names.extend(f"{base}:{kernel}" for kernel in sorted(SHARDED_KERNELS))
+        else:
+            names.append(base)
+    return names
 
 
 def get_backend(name: str, **kwargs) -> TrustBackend:
     """Construct a backend by name; ``device`` (default: the card; not
     taken by ``native-cpu``) and the backend's own arguments pass
-    through."""
+    through.  ``cuda-sharded`` alone takes a per-shard kernel suffix,
+    ``cuda-sharded:cuda-windowed``."""
+    base, _, kernel = name.partition(":")
+    if kernel:
+        if base != "cuda-sharded":
+            raise ValueError(
+                f"unknown trust backend {name!r}; only cuda-sharded takes a "
+                f":<kernel> suffix (available: {sorted(_BACKENDS)})"
+            )
+        kwargs.setdefault("kernel", kernel)
     try:
-        cls = _BACKENDS[name]
+        cls = _BACKENDS[base]
     except KeyError:
         raise ValueError(
             f"unknown trust backend {name!r}; available: {sorted(_BACKENDS)}"

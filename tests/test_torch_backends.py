@@ -264,10 +264,11 @@ def test_sybil_damping_bounds_collective():
 def test_registry_names_follow_the_reference_ladder():
     assert registered_backends() == [
         "native-cpu", "cuda-dense", "cuda-sparse", "cuda-csr", "cuda-windowed",
+        "cuda-sharded:cuda-csr", "cuda-sharded:cuda-windowed",
     ]
 
 
-@pytest.mark.parametrize("name", ["gpu-magic", "tpu-sparse", "cuda-sharded"])
+@pytest.mark.parametrize("name", ["gpu-magic", "tpu-sparse", "tpu-sharded", "cuda-csr:cuda-windowed"])
 def test_unknown_backend(name):
     with pytest.raises(ValueError, match="unknown trust backend"):
         tget(name, device="cpu")
@@ -276,7 +277,10 @@ def test_unknown_backend(name):
 @pytest.mark.parametrize("name", registered_backends())
 def test_every_named_backend_constructs(name):
     b = tget(name) if name == "native-cpu" else tget(name, device="cpu")
-    assert b.name == name and b.device == torch.device("cpu")
+    # A sharded composite is the cuda-sharded backend on its kernel.
+    base, _, kernel = name.partition(":")
+    assert b.name == base and b.device == torch.device("cpu")
+    assert getattr(b, "kernel", "") == kernel
 
 
 # ---------------------------------------------------------------------------

@@ -197,9 +197,34 @@ def test_windowed_backend_epoch_replay_matches_reference():
     assert tb.plan_outcomes["reuse"] == 1
 
 
+def test_eigentrust_model_default_backend_matches_the_reference_model():
+    """The model's default backend is the reference's: the COO step
+    (``cuda-sparse`` against ``tpu-sparse``), scores at the reference's
+    cross-backend tolerance, residual histories at this file's.  The port
+    sums each dst segment in double-single, the reference in float32, so
+    the two histories differ by up to the float32 floor (RESID_ATOL); on
+    this graph the residual of step 21 falls within that floor of the
+    model's tol 1e-6, and the two stop one step apart (22 and 21)."""
+    from protocol_tpu.models.eigentrust import EigenTrustModel as RefModel
+
+    g = erdos_renyi(500, avg_degree=6.0, seed=2)
+    model = EigenTrustModel(g, device="cpu")
+    assert model.backend == "cuda-sparse"
+    port = model.converge()
+    ref = RefModel(g).converge()
+    assert port.backend == "cuda-sparse" and ref.backend == "tpu-sparse"
+    k = min(port.iterations, ref.iterations)
+    np.testing.assert_allclose(port.residuals[:k], ref.residuals[:k], rtol=RESID_RTOL, atol=RESID_ATOL)
+    if port.iterations != ref.iterations:
+        # Only a deciding residual within the floor of tol parts them.
+        assert abs(port.iterations - ref.iterations) == 1
+        assert abs(port.residuals[k - 1] - model.tol) <= RESID_ATOL
+    np.testing.assert_allclose(port.scores, ref.scores, rtol=1e-3, atol=1e-8)
+
+
 def test_eigentrust_model_on_cpu():
     g = erdos_renyi(500, avg_degree=6.0, seed=2)
-    port = EigenTrustModel(g, device="cpu").converge()
+    port = EigenTrustModel(g, backend="cuda-windowed", device="cpu").converge()
     ref = jget("tpu-csr").converge(g, alpha=0.1, tol=1e-6, max_iter=50)
     assert l1(port.scores, ref.scores) <= 1e-5
     top = EigenTrustModel(g, device="cpu").top_k(port, k=3)

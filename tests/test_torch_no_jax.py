@@ -68,8 +68,19 @@ def test_port_modules_walk_the_node_and_its_host_modules():
     for sub in ("analysis", "chaos", "crypto", "node", "obs", "parallel", "prover", "utils", "zk"):
         assert f"protocol_tpu_torch.{sub}" in mods, sub
     for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
-                "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs"):
+                "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs",
+                "parallel.mesh", "parallel.launch", "parallel.sharded", "parallel.dryrun"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
+
+
+def test_a_spawned_rank_loads_neither_jax_nor_the_reference():
+    """A rank started by ``run_ranks`` imports its program from the port
+    (this process has jax loaded; the spawned rank starts fresh)."""
+    from protocol_tpu_torch.parallel.dryrun import loaded_modules
+    from protocol_tpu_torch.parallel.launch import run_ranks
+
+    assert "jax" in sys.modules
+    assert run_ranks(2, loaded_modules, backend="gloo", device="cpu", timeout_s=60) == [[], []]
 
 
 def test_importing_the_node_builds_no_library():
