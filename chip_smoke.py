@@ -47,7 +47,17 @@ recovery and a warm-started epoch on ``cuda-windowed`` and on
 ``cuda-csr`` (``protocol_tpu_torch.node``), held against direct
 converges on the card, the same node on the CPU and the kernel budgets
 the backends declare (launch counts and a profiler trace), with each
-stage's seconds.
+stage's seconds.  Last the PLONK prover stack (``plonk``): the zk
+runtime (``native/zk_runtime.cpp``, ``zk_ifma.cpp``, built with g++
+beside the kernels) loaded, a cold keygen of the default 5-member
+statement from the committed ``data/srs-15.bin``, the committed epoch
+proof ``data/et_proof.json`` verifying and its tampered copies refused,
+and the reference's default node configuration (``prover="plonk"``,
+``check_circuit=True``) on ``cuda-windowed``: two ``EpochPipeline``
+epochs on the card, launches against the backend's budget, the circuit
+check, the KZG PLONK proof of the last epoch and its verify, with the
+prove's native phase table, and the same node on the CPU proving the
+same bytes.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
@@ -55,7 +65,8 @@ Every phase prints one JSON line.  Before the last line come the card's
 K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
 for K9, the probes phase for
 K2-K4 — on the main path, on the node's card converges by backend
-(``node_launches``), on each rank of the sharded headline converges by
+(``node_launches``), on the PLONK node's card converges
+(``plonk_launches``), on each rank of the sharded headline converges by
 backend (``sharded_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
@@ -386,6 +397,144 @@ def node_phase(wrappers, check, emit, smi) -> dict:
     return totals
 
 
+PLONK = dict(backend="cuda-windowed", epochs=2, srs="data/srs-15.bin", proof="data/et_proof.json")
+
+
+def run_plonk_node(config, prover, atts, wrappers):
+    """The reference's default node (the bootstrap group of 5,
+    ``prover="plonk"``, ``check_circuit=True``) on ``config``'s backend
+    and device, with ``prover`` handed in: ingest, ``PLONK["epochs"]``
+    epochs through the ``EpochPipeline`` (each wrapper's launches set to
+    0 just before each converge and read just after), then the last
+    epoch's circuit check and PLONK proof under one span, whose children
+    time the check and the prove and carry the prove's native phase
+    table (``plonk._ProveAttribution``)."""
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager
+    from protocol_tpu_torch.node.pipeline import EpochPipeline
+    from protocol_tpu_torch.obs import TRACER
+
+    epochs = []
+
+    def stage(prepared):
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        result = m.converge_prepared(prepared, **NODE_KW)
+        epochs.append(dict(iterations=result.iterations, seconds=time.perf_counter() - t0,
+                           launches={w.__name__: w.launches for w in wrappers}))
+        return result
+
+    m = Manager(config, prover=prover)
+    rejected = [v.reason for v in m.add_attestations_bulk(atts) if not v.accepted]
+    if rejected:
+        raise RuntimeError(f"attestations rejected: {rejected}")
+    with EpochPipeline(m, device_stage=stage) as pipe:
+        for k in range(PLONK["epochs"]):
+            pipe.submit(Epoch(k))
+            if not pipe.drain(120):
+                raise RuntimeError(f"epoch {k} did not finish")
+    failed = {k: repr(o.error) for k, o in pipe.outcomes.items() if o.error is not None}
+    if failed:
+        raise RuntimeError(f"epochs failed: {failed}")
+    last = Epoch(PLONK["epochs"] - 1)
+    with TRACER.span("plonk_epoch") as span:
+        m.calculate_proofs(last)
+    proof = m.get_proof(last)
+    snark = span.find("snark")
+    return dict(
+        epochs=epochs, pub_ins=proof.pub_ins, proof=proof.proof,
+        circuit_check_s=span.find("circuit_check").duration_s, snark_s=snark.duration_s,
+        prove_phases={c.name: {"calls": c.attrs.get("calls"), "seconds": c.duration_s,
+                               "engine": c.attrs.get("engine")} for c in snark.children},
+    )
+
+
+def plonk_phase(wrappers, check, emit, smi) -> dict:
+    """The PLONK prover stack on the card's host: the port's zk runtime
+    built and loaded; a cold keygen of the default 5-member statement
+    (k = 14) from the committed SRS on a fresh key cache; the committed
+    epoch proof verifying under that key and its tampered copies
+    refused; a default-configuration node on ``cuda-windowed`` on the
+    card (``run_plonk_node``), its converges' launches equal to the
+    backend's declared budget, its epoch proof verifying; and the same
+    node on the CPU, whose public inputs and proof bytes equal the card
+    node's.  Returns each wrapper's launches over the card node's
+    converges."""
+    import shutil
+
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.crypto import field
+    from protocol_tpu_torch.node.manager import ManagerConfig
+    from protocol_tpu_torch.zk import native as znative
+    from protocol_tpu_torch.zk.proof import PlonkEpochProver, ProofRaw
+
+    check(znative.available(), "the zk runtime (native/zk_runtime.cpp, zk_ifma.cpp) did not build")
+    ifma = znative.ifma_available()
+    t_phase = time.perf_counter()
+    keys = HERE / "build" / "chip_smoke_plonk" / "keys"
+    shutil.rmtree(keys, ignore_errors=True)
+    srs = str(HERE / PLONK["srs"])
+    t0 = time.perf_counter()
+    prover = PlonkEpochProver(srs_path=srs, cache_dir=str(keys))
+    keygen_s = time.perf_counter() - t0
+    check(prover.vk.k == 14, f"plonk: the default statement compiled at k={prover.vk.k}, not 14")
+
+    committed = ProofRaw.from_json((HERE / PLONK["proof"]).read_text()).to_proof()
+    t0 = time.perf_counter()
+    committed_ok = prover.verify(committed.pub_ins, committed.proof)
+    committed_verify_s = time.perf_counter() - t0
+    bad_ins = [(committed.pub_ins[0] + 1) % field.MODULUS] + committed.pub_ins[1:]
+    flipped = bytearray(committed.proof)
+    flipped[7] ^= 1
+    check(committed_ok, "plonk: the committed epoch proof does not verify")
+    check(not prover.verify(bad_ins, committed.proof), "plonk: a wrong public input verified")
+    check(not prover.verify(committed.pub_ins, bytes(flipped)), "plonk: a flipped proof byte verified")
+
+    _, atts, _ = node_group(5, NODE["seed"])
+    config = dict(backend=PLONK["backend"], srs_path=srs, plan_delta_max_churn=0.25)
+    defaults = ManagerConfig(**config)
+    check((defaults.prover, defaults.check_circuit, defaults.num_neighbours) == ("plonk", True, 5),
+          "plonk: the node's defaults are not the reference's")
+    card = run_plonk_node(defaults, prover, atts, wrappers)
+    cpu = run_plonk_node(ManagerConfig(device="cpu", **config), prover, atts, wrappers)
+    t0 = time.perf_counter()
+    card_ok = prover.verify(card["pub_ins"], card["proof"])
+    verify_s = time.perf_counter() - t0
+
+    budget = KERNEL_INVARIANTS[PLONK["backend"]]
+    totals = {w.__name__: 0 for w in wrappers}
+    launches_ok = []
+    for e in card["epochs"]:
+        want = {w.__name__: 0 for w in wrappers}
+        want.update(budget.expected_launches(e["iterations"]))
+        launches_ok.append(e["launches"] == want)
+        for w, k in e["launches"].items():
+            totals[w] += k
+    rec = dict(
+        zk_runtime=str(znative.library_path().name), ifma=ifma,
+        keygen_s=keygen_s, k=prover.vk.k, committed_verify_s=committed_verify_s,
+        circuit_check_s=card["circuit_check_s"], snark_s=card["snark_s"], verify_s=verify_s,
+        prove_phases=card["prove_phases"],
+        cpu_node=dict(circuit_check_s=cpu["circuit_check_s"], snark_s=cpu["snark_s"]),
+        iterations=[e["iterations"] for e in card["epochs"]],
+        cpu_iterations=[e["iterations"] for e in cpu["epochs"]],
+        converge_s=[e["seconds"] for e in card["epochs"]],
+        launches=[e["launches"] for e in card["epochs"]], launches_match_budget=launches_ok,
+        pub_ins=[str(x) for x in card["pub_ins"]], proof_bytes=len(card["proof"]),
+        proof_equal=card["proof"] == cpu["proof"] and card["pub_ins"] == cpu["pub_ins"],
+    )
+    check(card_ok, "plonk: the card node's epoch proof does not verify")
+    check(all(launches_ok), f"plonk: launches {rec['launches']} off the {PLONK['backend']} budget")
+    check(all(e["iterations"] > 0 for e in card["epochs"]), "plonk: a converge ran no step")
+    check(rec["proof_equal"], "plonk: the card node's proof differs from the CPU node's")
+    total = sum(card["pub_ins"]) % field.MODULUS
+    check(total == 5 * 1000, f"plonk: public scores sum to {total} in the field, not 5000")
+    shutil.rmtree(keys.parent, ignore_errors=True)
+    emit("plonk", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
+    return totals
+
+
 SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
                small_kw=dict(alpha=0.1, tol=1e-6, max_iter=60), timeout_s=600)
 
@@ -616,20 +765,39 @@ def main() -> None:
             crypto_build["ok"], crypto_build["error"] = False, str(exc)
         crypto_build["seconds"] = time.perf_counter() - t
 
-    crypto_thread = threading.Thread(target=build_crypto)
-    crypto_thread.start()
+    from protocol_tpu_torch.zk import native as znative
+
+    zk_build = {}
+
+    def build_zk():
+        t = time.perf_counter()
+        try:
+            zk_build["library"] = str(znative.build())
+            zk_build["ok"] = znative.available()
+            zk_build["ifma"] = znative.ifma_available()
+        except OSError as exc:
+            zk_build["ok"], zk_build["error"] = False, str(exc)
+        zk_build["seconds"] = time.perf_counter() - t
+
+    host_threads = [threading.Thread(target=build_crypto), threading.Thread(target=build_zk)]
+    for thread in host_threads:
+        thread.start()
     t0 = time.perf_counter()
     report = _build.build()
     build_s = time.perf_counter() - t0
-    crypto_thread.join()
+    for thread in host_threads:
+        thread.join()
     ptxas = {
         name: [ln.strip() for ln in r["log"].splitlines()
                if "registers" in ln or "smem" in ln or "spill" in ln]
         for name, r in report.items()
     }
-    emit("build", seconds=build_s, built=sorted(report), ptxas=ptxas, crypto_runtime=crypto_build)
+    emit("build", seconds=build_s, built=sorted(report), ptxas=ptxas, crypto_runtime=crypto_build,
+         zk_runtime=zk_build)
     check(crypto_build.get("ok", False),
           f"the crypto runtime (native/protocol_native.cpp) did not build: {crypto_build}")
+    check(zk_build.get("ok", False),
+          f"the zk runtime (native/zk_runtime.cpp, zk_ifma.cpp) did not build: {zk_build}")
 
     def k1_vs_plain(plan, args, x):
         """K1 against its plain version on one plan (a difference
@@ -1518,6 +1686,9 @@ def main() -> None:
     # -- 9. node: the single-device node's epoch path ----------------------
     node_launches = node_phase(wrappers, check, emit, smi)
 
+    # -- 10. plonk: a default-configuration node proves its epoch -----------
+    plonk_launches = plonk_phase(wrappers, check, emit, smi)
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -1563,6 +1734,7 @@ def main() -> None:
     for entry in kernels:
         wrapper = entry.get("wrapper", entry["name"])
         entry["node_launches"] = {b: node_launches[b].get(wrapper, 0) for b in NODE["backends"]}
+        entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()
         }

@@ -14,9 +14,14 @@ rebuild of server/src/manager/mod.rs:72-237), on the port's backends:
   graph* (peer-id-indexed edge list) that the card backends converge at
   scale.
 
-Not ported yet: the PLONK prover and its circuit check
-(``prover="plonk"``, ``check_circuit=True`` raise ``NotImplementedError``)
-and the proof aggregation, all ROADMAP A5c.
+- each epoch proof is the reference's: with the defaults
+  (``prover="plonk"``, ``check_circuit=True``) the epoch statement is
+  checked at the constraint level, then proved with a KZG PLONK proof
+  on the host (``zk.proof.PlonkEpochProver``), byte-identical to the
+  reference package's at the same statement and SRS.
+
+Not ported yet: the proof aggregation (``aggregate_proofs`` raises
+``NotImplementedError``, ROADMAP A5c (i-b)).
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ chaos.declare("prover.pre_enqueue", "the epoch proof about to be computed or enq
 #: serving cache must not grow with uptime.
 PROOF_CACHE_EPOCHS = 64
 
-#: Where the PLONK prover and its circuit check stand: not ported yet.
-NOT_PORTED = "ROADMAP A5c (zk/{circuit,plonk,kzg})"
+#: Where the proof aggregation stands: not ported yet.
+NOT_PORTED = "ROADMAP A5c (i-b) (zk/{aggregator,agg_circuit,wrong_field})"
 
 #: Epochs of ConvergenceResult (full f32[N] fixed point each) kept for
 #: inspection — same ring discipline as ``EpochPipeline.outcomes``.
@@ -88,17 +93,14 @@ class ManagerConfig:
     #: host backend native-cpu takes none.
     device: str | None = None
     #: Run the constraint-system statement check before each proof —
-    #: the reference's always-on MockProver sanity pass.  Not ported
-    #: yet: True raises at proving time (ROADMAP A5c).
+    #: the reference's always-on MockProver sanity pass.
     check_circuit: bool = True
-    #: Proof backend: "plonk" (the reference's default; not ported yet,
-    #: asking for it raises — ROADMAP A5c) or "commitment" (Poseidon
-    #: binding, bit-identical to the reference's).
+    #: Proof backend: "plonk" (KZG PLONK, the reference's default) or
+    #: "commitment" (Poseidon binding, bit-identical to the reference's).
     prover: str = "plonk"
-    #: The PLONK prover's ceremony SRS file and proving-kernel backend
-    #: ("native" or "graft"): carried into each ProofJob as the
-    #: reference carries them, read by no prover until the PLONK
-    #: prover is ported.
+    #: The PLONK prover's ceremony SRS file (None: a dev-only random
+    #: setup) and proving-kernel backend: "native" (the host runtime) or
+    #: "graft" (the card kernels, which raise until ROADMAP A8).
     srs_path: str | None = None
     zk_backend: str = "native"
     #: Seed each epoch's convergence from the previous epoch's fixed
@@ -269,19 +271,22 @@ class Manager:
     def prover(self) -> Prover:
         if self._prover is None:
             if self.config.prover == "plonk":
-                # Never a silent fall back to the commitment prover.
-                raise NotImplementedError(
-                    f"the PLONK prover is not ported to protocol_tpu_torch yet ({NOT_PORTED}); "
-                    "configure prover='commitment'"
+                from ..zk.proof import PlonkEpochProver
+
+                self._prover = PlonkEpochProver(
+                    num_neighbours=self.config.num_neighbours,
+                    num_iter=self.config.num_iter,
+                    initial_score=self.config.initial_score,
+                    scale=self.config.scale,
+                    srs_path=self.config.srs_path,
                 )
             else:
                 self._prover = PoseidonCommitmentProver()
         return self._prover
 
     def warm_prover(self) -> None:
-        """Force prover construction now — called at node boot so the
-        first epoch tick doesn't pay it (and a prover that is not ported
-        raises at boot)."""
+        """Force prover construction (PLONK keygen) now — called at node
+        boot so the first epoch tick doesn't pay it."""
         _ = self.prover
 
     def _pk_hash(self, pk: PublicKey) -> int:
@@ -568,30 +573,44 @@ class Manager:
         if chaos.ACTIVE:
             chaos.fire("prover.pre_enqueue")
         cfg = self.config
-        if cfg.check_circuit:
-            raise NotImplementedError(
-                "the constraint-system statement check (check_circuit=True) "
-                f"is not ported to protocol_tpu_torch yet ({NOT_PORTED}); "
-                "configure check_circuit=False"
-            )
         atts = [self.attestations[h] for h in self._group_hashes]
         ops = [list(a.scores) for a in atts]
         init = [cfg.initial_score] * cfg.num_neighbours
         with TRACER.span("power_iterate"):
             pub_ins = power_iterate(init, ops, cfg.num_iter, cfg.scale)
 
+        # Constraint-level statement check before emitting the proof —
+        # the reference runs MockProver::assert_satisfied inside
+        # gen_proof even in release (verifier/mod.rs:62-70).  The
+        # synthesized system is handed to the prover so the k=14
+        # circuit isn't built twice per epoch.
         witness = {"ops": ops, "attestations": atts}
+        if cfg.check_circuit:
+            from ..zk.circuit import prove_epoch_statement
+
+            with TRACER.span("circuit_check"):
+                witness["cs"] = prove_epoch_statement(
+                    atts,
+                    pub_ins,
+                    num_neighbours=cfg.num_neighbours,
+                    num_iter=cfg.num_iter,
+                    initial_score=cfg.initial_score,
+                    scale=cfg.scale,
+                )
 
         # Proving time lands in telemetry, the structured analog of the
         # reference's "Proving time: {:?}" print (circuit/src/utils.rs:305-321).
         from ..prover.jobs import job_seed
         from ..utils.telemetry import TELEMETRY
+        from ..zk.graft import use_zk_backend
 
         # The statement-bound blinding seed keeps the synchronous path
         # byte-identical to the pooled path for the same input (the
         # async-prover equivalence contract).
         seed = job_seed(self.build_proof_job(epoch))
-        with TELEMETRY.timer("epoch.prove"), TRACER.span("snark"):
+        # The configured proving-kernel backend runs the prove; "graft"
+        # raises (ROADMAP A8) rather than proving on the host unasked.
+        with use_zk_backend(cfg.zk_backend), TELEMETRY.timer("epoch.prove"), TRACER.span("snark"):
             proof_bytes = self.prover.prove(pub_ins, witness, seed=seed)
         if __debug__:
             assert self.prover.verify(pub_ins, proof_bytes)
@@ -937,3 +956,10 @@ class Manager:
         if not self.cached_proofs:
             raise EigenError.proof_not_found()
         return self.cached_proofs[max(self.cached_proofs, key=lambda e: e.number)]
+
+    def aggregate_proofs(self, epochs: list[Epoch]):
+        """Batch-verify cached epoch SNARKs with one pairing check (the
+        reference's ``zk.aggregator`` accumulation).  Not ported yet."""
+        raise NotImplementedError(
+            f"proof aggregation is not ported to protocol_tpu_torch yet ({NOT_PORTED})"
+        )

@@ -8,8 +8,11 @@ are *the same statement*.
 Determinism: :func:`job_seed` derives the proof's blinding seed from
 the job payload itself (the RFC-6979 stance: deterministic nonces bound
 to the witness), so proving the same statement twice gives the same
-bytes.  The proving plane that moves jobs across a process boundary
-(``prove_job``, ``prover_for``) is not ported yet.
+bytes.  :func:`prover_for` keeps one prover a process per (params,
+prover kind, SRS), so repeated proofs skip SRS load and keygen.  The
+proving plane that moves jobs across a process boundary (``prove_job``,
+which also needs the fleet registry's snapshot) is not ported yet
+(ROADMAP A5c (ii)).
 """
 
 from __future__ import annotations
@@ -101,3 +104,37 @@ def job_seed(job: ProofJob) -> bytes:
 def job_fingerprint(job: ProofJob) -> str:
     """Stable hex id of the statement (logs/journal)."""
     return job_seed(job).hex()[:16]
+
+
+# Per-process prover cache: one Prover instance per (params, prover
+# kind, srs_path), built on first use, so repeated jobs skip SRS load
+# and keygen entirely.
+_PROVERS: dict[tuple, Any] = {}
+
+
+def prover_for(
+    params: tuple[int, int, int, int],
+    prover: str = "plonk",
+    srs_path: str | None = None,
+):
+    """The cached per-process Prover for these protocol parameters."""
+    key = (tuple(int(p) for p in params), prover, srs_path)
+    inst = _PROVERS.get(key)
+    if inst is None:
+        if prover == "plonk":
+            from ..zk.proof import PlonkEpochProver
+
+            n, it, init, scale = key[0]
+            inst = PlonkEpochProver(
+                num_neighbours=n,
+                num_iter=it,
+                initial_score=init,
+                scale=scale,
+                srs_path=srs_path,
+            )
+        else:
+            from ..zk.proof import PoseidonCommitmentProver
+
+            inst = PoseidonCommitmentProver()
+        _PROVERS[key] = inst
+    return inst

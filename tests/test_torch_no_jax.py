@@ -58,6 +58,7 @@ def test_importing_every_port_module_loads_no_jax():
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "protocol_tpu_torch.ops.gather_window" in loaded
     assert "protocol_tpu_torch.node.manager" in loaded
+    assert "protocol_tpu_torch.zk.plonk" in loaded
     assert [m for m in loaded if forbidden(m)] == []
 
 
@@ -69,7 +70,10 @@ def test_port_modules_walk_the_node_and_its_host_modules():
         assert f"protocol_tpu_torch.{sub}" in mods, sub
     for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
                 "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs",
-                "parallel.mesh", "parallel.launch", "parallel.sharded", "parallel.dryrun"):
+                "parallel.mesh", "parallel.launch", "parallel.sharded", "parallel.dryrun",
+                "crypto.keccak", "zk.rns", "zk.bn254", "zk.fields", "zk.cs", "zk.gadgets",
+                "zk.chips", "zk.eddsa", "zk.circuit", "zk.transcript", "zk.native", "zk.graft",
+                "zk.kzg", "zk.plonk"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -97,6 +101,23 @@ def test_importing_the_node_builds_no_library():
     )
     assert out.stdout.strip().splitlines()[-1] == "True"
     assert cnative.library_path().parent == REPO / "build" / "protocol_tpu_torch"
+
+
+def test_importing_the_prover_builds_no_library():
+    """The zk runtime is built at first use too, never on import."""
+    from protocol_tpu_torch.zk import native as znative
+
+    code = (
+        "import protocol_tpu_torch.zk, protocol_tpu_torch.zk.plonk, protocol_tpu_torch.zk.kzg\n"
+        "import protocol_tpu_torch.zk.native as z\n"
+        "print(z._lib is None)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120,
+        check=True,
+    )
+    assert out.stdout.strip().splitlines()[-1] == "True"
+    assert znative.library_path().parent == REPO / "build" / "protocol_tpu_torch"
 
 
 @pytest.mark.parametrize(

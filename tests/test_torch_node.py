@@ -5,6 +5,7 @@ seeds and plan outcomes across a re-attestation sequence, commitment
 proofs bit for bit, and the reference's manager warm-state and epoch
 pipeline suites (``tests/test_epoch_pipeline.py``) run on the port."""
 
+import dataclasses
 import logging
 import random
 import time
@@ -228,22 +229,38 @@ class TestProofs:
         assert mine.to_raw("commitment").to_json() == ref.to_raw("commitment").to_json()
 
     def test_plonk_prover_raises_naming_the_roadmap_item(self):
-        m = Manager(ManagerConfig(check_circuit=False))
+        """The PLONK prover is ported (``tests/test_torch_plonk_node.py``);
+        what of it is not, the aggregation and the graft kernels, raises
+        naming its ROADMAP item, before any keygen and with no proof
+        cached."""
+        m = Manager(ManagerConfig(check_circuit=False, zk_backend="graft"))
         assert m.config.prover == "plonk"
         m.generate_initial_attestations()
-        with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-            m.warm_prover()
-        with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A5c \(i-b\)"):
+            m.aggregate_proofs([Epoch(1)])
+        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
             m.calculate_proofs(Epoch(1))
+        assert m._prover is None
         assert not m.cached_proofs
 
     def test_circuit_check_raises_naming_the_roadmap_item(self):
+        """The circuit check is ported: it runs before every proof,
+        passes on the bootstrap group's statement, and raises on one
+        whose signatures do not cover its score rows, caching no proof."""
         m = Manager(ManagerConfig(prover="commitment"))
         assert m.config.check_circuit is True
         m.generate_initial_attestations()
-        with pytest.raises(NotImplementedError, match="ROADMAP A5c"):
-            m.calculate_proofs(Epoch(1))
-        assert not m.cached_proofs
+        m.calculate_proofs(Epoch(1))
+        assert Epoch(1) in m.cached_proofs
+        h = next(iter(m.attestations))
+        att = m.attestations[h]
+        scores = list(att.scores)
+        scores[0], scores[1] = scores[0] + 50, scores[1] - 50
+        m.attestations[h] = dataclasses.replace(att, scores=scores)
+        assert m.attestations[h].scores != att.scores
+        with pytest.raises(AssertionError, match="not satisfied"):
+            m.calculate_proofs(Epoch(2))
+        assert Epoch(2) not in m.cached_proofs
 
 
 class TestDeviceAndBudgets:
