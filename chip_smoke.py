@@ -57,14 +57,19 @@ and the reference's default node configuration (``prover="plonk"``,
 epochs on the card, launches against the backend's budget, the circuit
 check, the KZG PLONK proof of the last epoch and its verify, with the
 prove's native phase table, and the same node on the CPU proving the
-same bytes.
+same bytes.  Then the graft prover kernels (``graft``): K10
+``zk_mulmod``, K11 ``zk_ntt_stage``, K12 ``zk_msm_window`` and K13
+``zk_msm_bucket`` against their plain versions, the graft NTT and MSM
+against the native runtime's, and the same default epoch proved under
+``zk_backend="graft"`` on the card, its bytes equal to the native
+proof's, every graft call's launches on its declared budget.
 
 Every phase prints one JSON line.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
 (per kernel: launches on its path — the windowed headline converge for
 K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
 for K9, the probes phase for
-K2-K4 — on the main path, on the node's card converges by backend
+K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on the node's card converges by backend
 (``node_launches``), on the PLONK node's card converges
 (``plonk_launches``), on each rank of the sharded headline converges by
 backend (``sharded_launches``), agreement with the plain version, its
@@ -450,7 +455,7 @@ def run_plonk_node(config, prover, atts, wrappers):
     )
 
 
-def plonk_phase(wrappers, check, emit, smi) -> dict:
+def plonk_phase(wrappers, check, emit, smi) -> tuple[dict, dict]:
     """The PLONK prover stack on the card's host: the port's zk runtime
     built and loaded; a cold keygen of the default 5-member statement
     (k = 14) from the committed SRS on a fresh key cache; the committed
@@ -460,7 +465,8 @@ def plonk_phase(wrappers, check, emit, smi) -> dict:
     backend's declared budget, its epoch proof verifying; and the same
     node on the CPU, whose public inputs and proof bytes equal the card
     node's.  Returns each wrapper's launches over the card node's
-    converges."""
+    converges, and what the ``graft`` phase reuses: the prover, the
+    node's inputs and the card node's result."""
     import shutil
 
     from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
@@ -532,7 +538,381 @@ def plonk_phase(wrappers, check, emit, smi) -> dict:
     check(total == 5 * 1000, f"plonk: public scores sum to {total} in the field, not 5000")
     shutil.rmtree(keys.parent, ignore_errors=True)
     emit("plonk", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
-    return totals
+    return totals, dict(prover=prover, atts=atts, config=config, card=card, trust_wrappers=wrappers)
+
+
+GRAFT = dict(k10_n=1 << 20, msm_n=1 << 14, rate_sizes=(1 << 10, 1 << 12, 1 << 14), rate_reps=3,
+             plain_reps=3, seed=13)
+#: 32-bit multiply-adds of one Montgomery multiply (CIOS, eight 32-bit
+#: limbs): two for each of the 128 full 32x32 -> 64-bit products of a * b
+#: and m * p, one for each of the eight m, of which only the low word is used.
+IMADS_A_MUL = 2 * 128 + 8
+#: A mixed Jacobian add of an affine point (madd-2007-bl, Z2 = 1): 11 multiplies.
+IMADS_A_MADD = 11 * IMADS_A_MUL
+#: A full Jacobian add (add-2007-bl): 16 multiplies.
+IMADS_A_JADD = 16 * IMADS_A_MUL
+
+
+def graft_wrappers():
+    """The graft kernels' wrappers: K10, K11, K12, K13."""
+    from protocol_tpu_torch.zk.graft import field, ntt, pippenger
+
+    return (field.field_op, ntt.ntt_stage, pippenger.msm_window, pippenger.msm_bucket)
+
+
+class GraftCalls:
+    """While ``recording()``, every call of a graft entry (``ntt_limbs``,
+    ``msm_limbs``, ``PointCache.build``) is logged with its size and its
+    launches by wrapper, and held against ``expected_zk_launches``
+    (``analysis/budget.py``); ``off_budget`` keeps the calls that differ."""
+
+    def __init__(self):
+        self.calls: list[tuple[str, dict]] = []
+        self.off_budget: list[dict] = []
+
+    def recording(self):
+        import contextlib
+
+        from protocol_tpu_torch.analysis.budget import expected_zk_launches
+        from protocol_tpu_torch.zk.graft import ntt, pippenger
+
+        wrappers = graft_wrappers()
+
+        def wrap(entry, fn, size):
+            def counted(*args, **kwargs):
+                before = {w.__name__: w.launches for w in wrappers}
+                out = fn(*args, **kwargs)
+                got = {w.__name__: w.launches - before[w.__name__] for w in wrappers}
+                sz = size(*args, **kwargs)
+                want = {name: 0 for name in got}
+                want.update(expected_zk_launches(entry, **sz))
+                self.calls.append((entry, sz))
+                if got != want:
+                    self.off_budget.append(dict(entry=entry, size=sz, launches=got, declared=want))
+                return out
+
+            return counted
+
+        @contextlib.contextmanager
+        def session():
+            saved = (ntt.ntt_limbs, pippenger.msm_limbs, pippenger.PointCache.__dict__["build"])
+            ntt.ntt_limbs = wrap("ntt_limbs", saved[0], lambda arr, root, inverse: dict(
+                n=int(arr.shape[0]), inverse=bool(inverse)))
+            pippenger.msm_limbs = wrap("msm_limbs", saved[1], lambda s, cache: dict(n=int(s.shape[0])))
+            pippenger.PointCache.build = classmethod(wrap(
+                "point_cache", saved[2].__func__, lambda cls, pts, device=None: dict(n=len(pts))))
+            try:
+                yield self
+            finally:
+                ntt.ntt_limbs, pippenger.msm_limbs = saved[:2]
+                pippenger.PointCache.build = saved[2]
+
+        return session()
+
+
+def normalized_buckets(grid) -> dict:
+    """A (32, 256, 3, 4) int64 bucket grid (canonical Jacobian Fq) as
+    {(window, digit): affine (x, y)} over its non-empty buckets, digit >= 1."""
+    import numpy as np
+
+    from protocol_tpu_torch.zk.rns import FQ_MODULUS as Q
+
+    words = grid.cpu().numpy().view(np.uint64).reshape(32, 256, 3, 4)
+    out = {}
+    ws, ds = np.nonzero(words[:, 1:, 2, :].any(axis=-1))
+    for w, d in zip(ws.tolist(), (ds + 1).tolist()):
+        x, y, z = (int.from_bytes(words[w, d, k].tobytes(), "little") for k in range(3))
+        zi = pow(z, Q - 2, Q)
+        zi2 = zi * zi % Q
+        out[(w, d)] = (x * zi2 % Q, y * zi2 % Q * zi % Q)
+    return out
+
+
+def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
+    """The graft prover kernels on the card (K10-K13): each held against
+    its plain version on the card at the prove's shapes (K10 bit for bit
+    on 2^20 random elements of each field with the edge values first;
+    K11's stages at the extended domain bit for bit; K12's sorted
+    digits equal, and equal to ``torch.sort``'s of the scalars' bytes, and
+    its order a permutation that sorts them; K13's
+    buckets equal as affine points); ``ntt_limbs`` under graft against
+    the native ``zk_ntt`` at 2^k and at the extended size, forward,
+    inverse and round trip; ``msm_limbs`` under graft against native at
+    2^14 random and {0, 1} scalars and at the reference test's n = 33
+    edge batch (against the exact sum too); then, with ``plonk_ctx``
+    (the ``plonk`` phase's prover, whose SRS and domain sizes the checks
+    above use, node inputs and card proof), the default 5-member epoch
+    proved on the card under ``zk_backend="graft"``: its bytes and public inputs equal the native
+    card proof's and verify, every graft call's launches equal the
+    declared budget, and the phase table, ``finish_s`` and the launches
+    are kept; last the MSM and NTT rates of both engines.  Returns the
+    ``kernels`` entries of K10-K13."""
+    import functools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from protocol_tpu_torch.bench._timing import INT32_OPS_PER_S, bound_by, bound_ms, time_ms
+    from protocol_tpu_torch.crypto.field import MODULUS as R
+    from protocol_tpu_torch.utils.limbs import to_limbs_fast
+    from protocol_tpu_torch.zk import native as znative
+    from protocol_tpu_torch.zk import plonk
+    from protocol_tpu_torch.zk.bn254 import GENERATOR, IDENTITY, G1
+    from protocol_tpu_torch.zk.graft import field as gf
+    from protocol_tpu_torch.zk.graft import ntt as gntt
+    from protocol_tpu_torch.zk.graft import pippenger as gpp
+    from protocol_tpu_torch.zk.graft import use_zk_backend
+
+    t_phase = time.perf_counter()
+    vk = plonk_ctx["prover"].vk
+    srs, k, ext_k = vk.srs, vk.k, vk.k + vk.ext_factor.bit_length() - 1
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(GRAFT["seed"])
+    rec: dict = {}
+    calls = GraftCalls()
+
+    def canonical_words(n):
+        """(n, 4) u64 words below 2^252, so canonical in Fr and Fq."""
+        w = rng.integers(0, np.iinfo(np.uint64).max, size=(n, 4), dtype=np.uint64, endpoint=True)
+        w[:, 3] &= np.uint64((1 << 60) - 1)
+        return w
+
+    def entry(name, wrapper, replaces, res, **more):
+        return dict(
+            name=name, wrapper=wrapper, route="cuda",
+            source=f"protocol_tpu_torch/ops/csrc/{name}.cu", replaces=replaces, path="graft",
+            max_abs_err=0.0, ms=res["ms"], plain_ms=res["plain_ms"], bound_ms=res["bound_ms"],
+            bound_by=res["bound_by"], library_ms=res.get("library_ms"), shape=res["shape"], **more,
+        )
+
+    def bounds(nbytes, ops):
+        return dict(bound_ms=bound_ms(nbytes, ops, INT32_OPS_PER_S),
+                    bound_by=bound_by(nbytes, ops, INT32_OPS_PER_S), bytes=nbytes, imads=ops)
+
+    # -- K10: both fields, the three operations, the edge values first ---
+    n = GRAFT["k10_n"]
+    k10 = {}
+    for F in (gf.FR, gf.FQ):
+        wa, wb = canonical_words(n), canonical_words(n)
+        edge = [0, 1, F.p - 1, F.r, F.r2]
+        wa[: len(edge)] = to_limbs_fast(edge)
+        wb[: len(edge)] = to_limbs_fast(edge[::-1])
+        wb[len(edge) : 2 * len(edge)] = to_limbs_fast(edge)
+        a, b = gf.u64_to_tensor(wa, dev), gf.u64_to_tensor(wb, dev)
+        same = {op: torch.equal(gf.field_op(a, b, F, op), gf._plain(a, b, F, op))
+                for op in ("mul", "add", "sub")}
+        same["to_mont"] = torch.equal(F.to_mont(a), gf._plain(a, F.const(F.r2, dev), F, "mul"))
+        check(all(same.values()), f"graft: K10 ({F.name}) differs from its plain version: {same}")
+        k10[F.name] = dict(
+            shape=[n, 4], equal=same,
+            ms=time_ms(lambda: gf.field_op(a, b, F)),
+            plain_ms=time_ms(lambda: gf._plain(a, b, F, "mul"), reps=GRAFT["plain_reps"], warmup=1),
+            broadcast_ms=time_ms(lambda: F.to_mont(a)),
+            **bounds(96 * n, IMADS_A_MUL * n),
+        )
+    rec["k10"] = k10
+
+    # -- K11 at the extended domain, all its stages; ntt_limbs vs native ---
+    m = 1 << ext_k
+    x0 = gf.u64_to_tensor(canonical_words(m), dev)  # canonical, so a valid Montgomery form
+    plan = gntt._device_plan(m, plonk.Domain(ext_k).omega, dev)
+    halves = [1 << j for j in range(ext_k)]
+    xk, xp = x0.clone(), x0.clone()
+    stages_equal = []
+    for h in halves:
+        gntt.ntt_stage(xk, plan[h - 1 : 2 * h - 1], h)
+        gntt._stage_plain(xp, plan[h - 1 : 2 * h - 1], h)
+        stages_equal.append(torch.equal(xk, xp))
+    check(all(stages_equal), f"graft: K11 differs from its plain version at stages {stages_equal}")
+
+    def all_stages(x, fn):
+        for h in halves:
+            fn(x, plan[h - 1 : 2 * h - 1], h)
+
+    k11 = dict(
+        shape=[m, 4], stages=len(halves),
+        ms=time_ms(lambda: all_stages(xk, gntt.ntt_stage)) / len(halves),
+        plain_ms=time_ms(lambda: all_stages(xp, gntt._stage_plain), reps=GRAFT["plain_reps"],
+                         warmup=1) / len(halves),
+        first_stage_ms=time_ms(lambda: gntt.ntt_stage(xk, plan[0:1], 1)),
+        last_stage_ms=time_ms(lambda: gntt.ntt_stage(xk, plan[m // 2 - 1 : m - 1], m // 2)),
+        # a stage reads and writes every element and reads its twiddles
+        # (the plan's m - 1, spread over the stages).
+        **bounds(64 * m + 32 * (m - 1) // len(halves), IMADS_A_MUL * m // 2),
+    )
+    ntt_parity = {}
+    with calls.recording():
+        for kk in sorted({k, ext_k}):
+            d = plonk.Domain(kk)
+            vals = canonical_words(d.n)
+            vals[0], vals[1] = 0, to_limbs_fast([R - 1])[0]
+            fwd = d.ntt_limbs(vals.copy(), d.omega, False)
+            inv = d.ntt_limbs(vals.copy(), d.omega_inv, True)
+            with use_zk_backend("graft", dev):
+                g_fwd = d.ntt_limbs(vals.copy(), d.omega, False)
+                g_inv = d.ntt_limbs(vals.copy(), d.omega_inv, True)
+                back = d.ntt_limbs(g_fwd.copy(), d.omega_inv, True)
+            ntt_parity[kk] = dict(forward=bool(np.array_equal(g_fwd, fwd)),
+                                  inverse=bool(np.array_equal(g_inv, inv)),
+                                  round_trip=bool(np.array_equal(back, vals)))
+    check(all(all(v.values()) for v in ntt_parity.values()),
+          f"graft: ntt_limbs differs from native zk_ntt: {ntt_parity}")
+    rec["k11"], rec["ntt_vs_native"] = k11, ntt_parity
+
+    # -- K12, K13 and msm_limbs at 2^14: random, {0, 1}; the n = 33 batch --
+    mn = GRAFT["msm_n"]
+    with calls.recording():
+        with use_zk_backend("graft", dev):
+            cache = srs._graft_cache()
+    native_points = znative._points_to_limbs(srs.g1_powers[:mn])
+    pts = cache.points[:mn]
+    cases = {"random": canonical_words(mn),
+             "zero_one": np.zeros((mn, 4), np.uint64)}
+    cases["zero_one"][:, 0] = rng.integers(0, 2, size=mn, dtype=np.uint64)
+    msm_parity, k12, k13 = {}, {}, {}
+    for name, words in cases.items():
+        st = gf.u64_to_tensor(words, dev)
+        ds, perm = gpp.msm_window(st)
+        ds_p, perm_p = gpp._window_plain(st)
+        digits = gpp._digits(st)
+        perm_ok = bool(torch.equal(torch.sort(perm.long(), dim=-1).values,
+                                   torch.arange(mn, device=dev).expand(32, mn)))
+        sorted_ok = bool(torch.equal(digits.gather(1, perm.long()), ds.long()))
+        # The library call: one unstable torch.sort of each window's bytes.
+        def library():
+            return torch.sort(st.view(torch.uint8).reshape(mn, 32).t(), dim=-1)
+
+        library_ok = bool(torch.equal(library().values.to(torch.int32), ds))
+        check(torch.equal(ds, ds_p) and perm_ok and sorted_ok and library_ok,
+              f"graft: K12 ({name}) differs from its plain version or its library call")
+        grid = gpp.msm_bucket(ds, perm, pts)
+        grid_p = gpp._buckets_plain(ds_p, perm_p, pts)
+        buckets_ok = normalized_buckets(grid) == normalized_buckets(grid_p)
+        check(buckets_ok and bool((grid[:, 0] == 0).all()),
+              f"graft: K13 ({name}) buckets differ from the plain buckets as points")
+        with calls.recording():
+            got = gpp.msm_limbs(words, cache)
+        want = znative.msm_limbs(words, native_points)
+        msm_parity[name] = got == want
+        # What this data needs: a mixed add (the cache's points are
+        # affine) for each non-zero lane past the first of its piece, a
+        # run within one of K13's chunks, and a full add to join each
+        # piece of a bucket past its first.
+        nz = int((ds != 0).sum())
+        filled = int((grid[:, 1:, 2] != 0).any(-1).sum())
+        starts = torch.ones_like(ds, dtype=torch.bool)
+        starts[:, 1:] = ds[:, 1:] != ds[:, :-1]
+        starts[:, :: min(mn, gpp.CHUNK)] = True
+        pieces = int((starts & (ds != 0)).sum())
+        madds, jadds = nz - pieces, pieces - filled
+        k12[name] = dict(shape=[mn, 4], ms=time_ms(lambda: gpp.msm_window(st)),
+                         plain_ms=time_ms(lambda: gpp._window_plain(st)),
+                         library_ms=time_ms(library), library_equal=library_ok,
+                         **bounds(32 * mn + 8 * 32 * mn, 0))
+        k13[name] = dict(shape=[32, mn], nonzero_lanes=nz, nonempty_buckets=filled,
+                         mixed_adds=madds, full_adds=jadds,
+                         ms=time_ms(lambda: gpp.msm_bucket(ds, perm, pts)),
+                         plain_ms=time_ms(lambda: gpp._buckets_plain(ds_p, perm_p, pts),
+                                          reps=GRAFT["plain_reps"], warmup=1),
+                         # reads the digits, the order and each point once,
+                         # writes the grid.
+                         **bounds(8 * 32 * mn + 96 * mn + 32 * 256 * 96,
+                                  IMADS_A_MADD * madds + IMADS_A_JADD * jadds))
+    # The reference test's edge batch: n = 33 (padded to 64), a zero
+    # scalar, r - 1, an identity point and a duplicated point.
+    e_scalars = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(33)]
+    e_points = [GENERATOR.mul(int.from_bytes(rng.bytes(32), "little") % R or 1) for _ in range(33)]
+    e_scalars[0], e_scalars[1] = 0, R - 1
+    e_points[2] = IDENTITY
+    e_points[4] = e_points[3]
+    exact = functools.reduce(G1.add, (p.mul(s) for s, p in zip(e_scalars, e_points)), IDENTITY)
+    with calls.recording():
+        with use_zk_backend("graft", dev):
+            from protocol_tpu_torch.zk import kzg
+
+            edge_got = kzg.msm(e_scalars, e_points)
+    edge_native = znative.msm_limbs(to_limbs_fast(e_scalars), znative._points_to_limbs(e_points))
+    msm_parity["edge_33"] = edge_got == exact and edge_native == exact
+    check(all(msm_parity.values()), f"graft: msm_limbs differs from native: {msm_parity}")
+    rec.update(msm_vs_native=msm_parity, k12=k12, k13=k13)
+
+    # -- the default epoch proved under graft, against the native card proof --
+    from protocol_tpu_torch.node.manager import ManagerConfig
+
+    wrappers = graft_wrappers()
+    for w in wrappers:
+        w.launches = 0
+    finish0 = gpp.finish_stats()
+    with calls.recording():
+        g = run_plonk_node(ManagerConfig(zk_backend="graft", **plonk_ctx["config"]),
+                           plonk_ctx["prover"], plonk_ctx["atts"], plonk_ctx["trust_wrappers"])
+    launches = {w.__name__: w.launches for w in wrappers}
+    finish1 = gpp.finish_stats()
+    native = plonk_ctx["card"]
+    t0 = time.perf_counter()
+    ok = plonk_ctx["prover"].verify(g["pub_ins"], g["proof"])
+    rec["prove"] = dict(
+        snark_s=g["snark_s"], native_snark_s=native["snark_s"], verify_s=time.perf_counter() - t0,
+        circuit_check_s=g["circuit_check_s"], prove_phases=g["prove_phases"],
+        native_prove_phases=native["prove_phases"], launches=launches,
+        finish_calls=finish1["calls"] - finish0["calls"],
+        finish_s=finish1["seconds"] - finish0["seconds"],
+        proof_equal=g["proof"] == native["proof"] and g["pub_ins"] == native["pub_ins"],
+    )
+    check(ok, "graft: the graft-proved epoch does not verify")
+    check(rec["prove"]["proof_equal"], "graft: the graft proof differs from the native card proof")
+    check(all(v > 0 for v in launches.values()), f"graft: a kernel did not launch: {launches}")
+    engines = {(name, row.get("engine")) for name, row in g["prove_phases"].items()}
+    check({("msm", "graft"), ("ntt", "graft")} <= engines,
+          f"graft: the prove's phase table has no graft msm/ntt rows: {sorted(engines)}")
+    rec["budget_calls"] = len(calls.calls)
+    check(not calls.off_budget, f"graft: calls off their declared launches: {calls.off_budget[:5]}")
+
+    # -- rates: bench/msm_bench.py's metrics, both engines --------------------
+    rates = {}
+    for size in GRAFT["rate_sizes"]:
+        words = canonical_words(size)
+        d = plonk.Domain(size.bit_length() - 1)
+
+        def wall(fn):
+            times = []
+            for _ in range(GRAFT["rate_reps"]):
+                t0 = time.perf_counter()
+                fn()
+                times.append(time.perf_counter() - t0)
+            return statistics.median(times)
+
+        def ntt_graft():
+            with use_zk_backend("graft", dev):
+                d.ntt_limbs(words.copy(), d.omega, False)
+
+        native_msm = wall(lambda: znative.msm_limbs(words, native_points[:size]))
+        graft_msm = wall(lambda: gpp.msm_limbs(words, cache))
+        native_ntt = wall(lambda: d.ntt_limbs(words.copy(), d.omega, False))
+        graft_ntt = wall(ntt_graft)
+        butterflies = size // 2 * (size.bit_length() - 1)
+        rates[size] = dict(
+            native=dict(msm_points_per_s=size / native_msm, ntt_butterflies_per_s=butterflies / native_ntt),
+            graft=dict(msm_points_per_s=size / graft_msm, ntt_butterflies_per_s=butterflies / graft_ntt),
+        )
+    rec["rates"] = rates
+    emit("graft", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
+
+    return [
+        entry("zk_mulmod", "field_op", "protocol_tpu/zk/graft/field.py:266 + :271",
+              k10["fq"], launches=launches["field_op"],
+              graft_launches=launches["field_op"], fr=k10["fr"]),
+        entry("zk_ntt_stage", "ntt_stage", "protocol_tpu/zk/graft/ntt.py:77", k11,
+              launches=launches["ntt_stage"], graft_launches=launches["ntt_stage"]),
+        entry("zk_msm_window", "msm_window", "protocol_tpu/zk/graft/pippenger.py:142",
+              k12["random"], launches=launches["msm_window"],
+              graft_launches=launches["msm_window"], skew=k12["zero_one"]),
+        entry("zk_msm_bucket", "msm_bucket",
+              "protocol_tpu/zk/graft/pippenger.py:150 + :166 + :171", k13["random"],
+              launches=launches["msm_bucket"], graft_launches=launches["msm_bucket"],
+              launches_a_call=["fold", "carry", "bucket"], skew=k13["zero_one"]),
+    ]
 
 
 SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
@@ -1687,7 +2067,10 @@ def main() -> None:
     node_launches = node_phase(wrappers, check, emit, smi)
 
     # -- 10. plonk: a default-configuration node proves its epoch -----------
-    plonk_launches = plonk_phase(wrappers, check, emit, smi)
+    plonk_launches, plonk_ctx = plonk_phase(wrappers, check, emit, smi)
+
+    # -- 11. graft: the prover's kernels K10-K13, the epoch proved on them --
+    kernels.extend(graft_phase(plonk_ctx, check, emit, smi))
 
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace

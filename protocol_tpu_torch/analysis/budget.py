@@ -17,12 +17,19 @@ time about a sharded backend without one, and ``chip_smoke.py`` holds
 each rank's counts against it.  The reference's comm budget also pins
 the compiled module's host round trips at 0; the port's does not, as
 gloo stages an all-reduce of CUDA tensors through the host.
+
+The graft prover's kernels (``zk/graft/``) declare theirs as well
+(``ZK_INVARIANTS``): for each of the reference's registry names
+(``zk.graft.ZK_KERNELS``), the wrapper that counts its launches and how
+many launches one call of each graft entry makes, from the call's size.
+``chip_smoke.py`` holds every graft call's launches against them.
 This module imports only the standard library.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Callable
 
 
 @dataclass(frozen=True)
@@ -83,3 +90,45 @@ def declare_comm(budget: CommBudget) -> CommBudget:
     """Register a comm budget (idempotent per backend name)."""
     COMM_INVARIANTS[budget.backend] = budget
     return budget
+
+
+@dataclass(frozen=True)
+class ZkKernelBudget:
+    """The launches of one graft kernel, by the reference's registry
+    name (``kernel``), counted by the wrapper ``wrapper``
+    (``zk/graft/*.py``; its ``launches`` attribute): for each graft
+    entry that launches it, a function of the call's size (``n`` points,
+    scalars or elements, and ``inverse`` for the NTT) giving the
+    launches one call makes.  Two names may share a wrapper, as the
+    MSM's scan and bucket passes share K13's."""
+
+    kernel: str
+    wrapper: str
+    per_call: dict[str, Callable[..., int]] = field(default_factory=dict)
+    notes: str = ""
+
+
+#: registry name -> declared budget.  Populated by ``zk/graft/field.py``,
+#: ``ntt.py`` and ``pippenger.py`` at import, next to their kernels.
+ZK_INVARIANTS: dict[str, ZkKernelBudget] = {}
+
+
+def declare_zk(budget: ZkKernelBudget) -> ZkKernelBudget:
+    """Register a graft kernel budget (idempotent per registry name)."""
+    ZK_INVARIANTS[budget.kernel] = budget
+    return budget
+
+
+def expected_zk_launches(entry: str, **size) -> dict[str, int]:
+    """Launches one call of graft entry ``entry`` (``ntt_limbs``,
+    ``msm_limbs``, ``point_cache``) of the given size makes, by wrapper.
+    A wrapper that two names share must be declared alike by both."""
+    out: dict[str, int] = {}
+    for budget in ZK_INVARIANTS.values():
+        fn = budget.per_call.get(entry)
+        if fn is None:
+            continue
+        k = int(fn(**size))
+        if out.setdefault(budget.wrapper, k) != k:
+            raise ValueError(f"{budget.wrapper}: declared {out[budget.wrapper]} and {k} for {entry}")
+    return out

@@ -21,6 +21,11 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM float32 rate outside the tensor cores, for operation bounds.
 F32_OPS_PER_S = 67e12
+#: H100 SXM 32-bit integer rate: the float32 rate counts two operations
+#: (an FMA) for each of an SM's 128 float32 lanes a clock; an SM has 64
+#: integer lanes, each one 32-bit multiply-add (IMAD) a clock.  For the
+#: graft kernels' operation bounds, in IMADs.
+INT32_OPS_PER_S = F32_OPS_PER_S / 4
 
 #: Untimed calls before the timed ones (kernel load, allocator, caches).
 WARMUP = 3
@@ -52,16 +57,16 @@ def time_ms(fn, reps: int = REPS, warmup: int = WARMUP) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: int, ops: int = 0) -> float:
+def bound_ms(nbytes: int, ops: int = 0, ops_per_s: float = F32_OPS_PER_S) -> float:
     """The least time in ms the card takes to move ``nbytes`` through
-    device memory and do ``ops`` float32 operations: the larger of the
-    two."""
-    return max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    device memory and do ``ops`` operations at ``ops_per_s`` (float32 by
+    default): the larger of the two."""
+    return max(nbytes / HBM_BYTES_PER_S, ops / ops_per_s) * 1e3
 
 
-def bound_by(nbytes: int, ops: int = 0) -> str:
+def bound_by(nbytes: int, ops: int = 0, ops_per_s: float = F32_OPS_PER_S) -> str:
     """Which of the two sets ``bound_ms``: ``"bytes"`` or ``"operations"``."""
-    return "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= ops / ops_per_s else "operations"
 
 
 def _lanes(out) -> tuple[torch.Tensor, ...]:

@@ -88,9 +88,10 @@ class ManagerConfig:
     #: process is a rank of an initialized torch.distributed group:
     #: each rank runs its own Manager on the same inputs.
     backend: str = "native-cpu"
-    #: Device of the card backends: None means the card (and raises
-    #: where there is none); "cpu" runs their plain versions.  The
-    #: host backend native-cpu takes none.
+    #: Device of the card backends and of the graft prover kernels:
+    #: None means the card (and raises where there is none); "cpu" runs
+    #: their plain versions.  The host backend native-cpu converges on
+    #: none.
     device: str | None = None
     #: Run the constraint-system statement check before each proof —
     #: the reference's always-on MockProver sanity pass.
@@ -100,7 +101,8 @@ class ManagerConfig:
     prover: str = "plonk"
     #: The PLONK prover's ceremony SRS file (None: a dev-only random
     #: setup) and proving-kernel backend: "native" (the host runtime) or
-    #: "graft" (the card kernels, which raise until ROADMAP A8).
+    #: "graft" (the card kernels K10-K13, on the node's device: ``device``
+    #: as the converge resolves it, so "cpu" runs their plain versions).
     srs_path: str | None = None
     zk_backend: str = "native"
     #: Seed each epoch's convergence from the previous epoch's fixed
@@ -609,8 +611,11 @@ class Manager:
         # async-prover equivalence contract).
         seed = job_seed(self.build_proof_job(epoch))
         # The configured proving-kernel backend runs the prove; "graft"
-        # raises (ROADMAP A8) rather than proving on the host unasked.
-        with use_zk_backend(cfg.zk_backend), TELEMETRY.timer("epoch.prove"), TRACER.span("snark"):
+        # on the node's device (the host backend's node names it in the
+        # config: None is the card, raising where there is none).
+        zk_device = self.device if self.device is not None else cfg.device
+        with use_zk_backend(cfg.zk_backend, zk_device), TELEMETRY.timer("epoch.prove"), \
+                TRACER.span("snark"):
             proof_bytes = self.prover.prove(pub_ins, witness, seed=seed)
         if __debug__:
             assert self.prover.verify(pub_ins, proof_bytes)

@@ -82,6 +82,27 @@ SIGNATURES = {
         [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # The graft prover's kernels (K10-K13), over ``csrc/bn254_field.cuh``.
+    # (a, b, out, n, b_full, field, op, stream)
+    "zk_mulmod": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (x, tw, n, half, stream)
+    "zk_ntt_stage": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (scalars, ds, perm, m, stream)
+    "zk_msm_window": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (ds, perm, points, tails, flags, loc, carry_from, out, m, ch, stream)
+    "zk_msm_bucket": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     # Yardsticks (bench/csrc).  (x, hi, lo, scratch, n, stream)
     "compensated_scan_global": (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_void_p],

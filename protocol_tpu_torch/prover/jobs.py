@@ -48,7 +48,8 @@ class ProofJob:
     #: Chaos hook of the proving plane's workers (tests/bench).
     chaos: str | None = None
     #: Proving-kernel backend of the PLONK prover: ``native`` or
-    #: ``graft``.  Execution selection only — both produce byte-identical proofs, so it is
+    #: ``graft`` (the card kernels, on the device the node hands the
+    #: knob).  Execution selection only — both produce byte-identical proofs, so it is
     #: excluded from :func:`job_seed` like the other bookkeeping
     #: fields, and pooled proofs survive a backend switch unchanged.
     zk_backend: str = "native"

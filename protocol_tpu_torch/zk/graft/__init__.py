@@ -1,15 +1,22 @@
-"""zk.graft — the proving-kernel backend knob and the phase table of the
-accelerated prover backend.
+"""zk.graft — the prover's inner loops on the card: the backend knob,
+the phase table and the lazy entry points of the graft kernels.
 
-The reference package's ``zk.graft`` runs the prover's inner loops
-(field multiply, NTT stage, Pippenger MSM) as jit kernels beside the
-native runtime.  Those kernels are not ported yet (ROADMAP A8); this
-module keeps their call sites: ``zk.kzg.msm``, ``Setup.commit_limbs``,
-``Setup.commit_batch`` and ``plonk.Domain``'s NTTs ask :func:`zk_backend`
-which engine runs, and ``plonk._ProveAttribution`` folds this table
-into the prove's span tree beside the native one.  ``"native"`` works;
-selecting ``"graft"`` raises ``NotImplementedError`` naming A8, and
-nothing falls back to the native engine in its place.
+The port of ``protocol_tpu/zk/graft/``.  ``zk.kzg.msm``,
+``Setup.commit_limbs``, ``Setup.commit_batch`` and ``plonk.Domain``'s
+NTTs ask :func:`zk_backend` which engine runs: ``"native"`` (the host
+runtime, ``zk/native.py``) or ``"graft"``, the hand-written CUDA
+kernels K10-K13 (``ops/csrc/zk_*.cu``) behind :mod:`.field`,
+:mod:`.ntt` and :mod:`.pippenger`, on the device that the knob holds
+beside the name (:func:`zk_device`).  ``None`` there means the card
+and raises where there is none (``protocol_tpu_torch.resolve_device``);
+``"cpu"`` runs the kernels' plain versions, as the tests do.  Nothing
+falls back to the native engine or to the CPU.  Both engines prove the
+same bytes: MSM and NTT results are exact group elements and field
+vectors, and ``plonk._ProveAttribution`` folds this module's phase
+table into the prove's span tree beside the native one.
+
+This module imports no torch: the kernel modules load on the first
+graft call.
 """
 
 from __future__ import annotations
@@ -17,11 +24,9 @@ from __future__ import annotations
 import contextlib
 import threading
 
-#: Where the graft kernels stand.
-NOT_PORTED = "ROADMAP A8 (the prover's graft kernels on Hopper, queue B's B8-B10)"
-
-#: The reference's graft kernels, by their registry names; each still
-#: to be written for the card (ROADMAP A8).
+#: The reference's graft kernels, by their registry names; each has a
+#: launch declaration in ``analysis/budget.py``'s ``ZK_INVARIANTS``
+#: (``field.py``, ``ntt.py`` and ``pippenger.py`` declare them).
 ZK_KERNELS = (
     "zk-graft-mulmod",
     "zk-graft-ntt-stage",
@@ -32,7 +37,7 @@ ZK_KERNELS = (
 
 
 def registered_zk_kernels() -> list[str]:
-    """Kernel names the graft backend will register."""
+    """Kernel names the launch budgets must cover."""
     return list(ZK_KERNELS)
 
 
@@ -52,44 +57,70 @@ def _check(name: str) -> None:
         raise ValueError(
             f"unknown zk_backend {name!r}; expected one of {VALID_BACKENDS}"
         )
-    if name == "graft":
-        raise NotImplementedError(
-            f"zk_backend='graft' is not ported to protocol_tpu_torch yet ({NOT_PORTED}); "
-            "use zk_backend='native'"
-        )
+
+
+def _resolve(name: str, device):
+    """The graft device for ``name``: resolved now for ``"graft"``
+    (``None`` is the card, a ``RuntimeError`` where there is none);
+    ``"native"`` takes none."""
+    if name != "graft":
+        return None
+    from ... import resolve_device
+
+    return resolve_device(device)
 
 
 def zk_backend() -> str:
     """The active proving-kernel backend: ``native`` (the ctypes
-    runtime with its pure-Python fallback)."""
+    runtime with its pure-Python fallback) or ``graft``."""
     return getattr(_local, "backend", _DEFAULT_BACKEND)
 
 
-def set_zk_backend(name: str) -> None:
+def zk_device():
+    """The ``torch.device`` the graft kernels run on in this thread:
+    the one selected with ``"graft"``, else the card (raising where
+    there is none)."""
+    device = getattr(_local, "device", None)
+    if device is None:
+        from ... import resolve_device
+
+        device = resolve_device(None)
+    return device
+
+
+def set_zk_backend(name: str, device=None) -> None:
+    """Select the backend for this thread; with ``"graft"``, on
+    ``device`` (``None``: the card)."""
     _check(name)
+    resolved = _resolve(name, device)
     _local.backend = name
+    _local.device = resolved
 
 
 @contextlib.contextmanager
-def use_zk_backend(name: str):
-    """Scoped backend selection, so a caller never leaks the knob."""
+def use_zk_backend(name: str, device=None):
+    """Scoped backend (and graft device) selection, so a caller never
+    leaks the knob."""
     _check(name)
-    prev = getattr(_local, "backend", None)
+    resolved = _resolve(name, device)
+    prev = (getattr(_local, "backend", None), getattr(_local, "device", None))
     _local.backend = name
+    _local.device = resolved
     try:
         yield
     finally:
-        if prev is None:
+        if prev[0] is None:
             del _local.backend
         else:
-            _local.backend = prev
+            _local.backend = prev[0]
+        _local.device = prev[1]
 
 
 # ---------------------------------------------------------------------------
 # Phase timers — same table shape as zk.native.phase_stats(), so
 # plonk._ProveAttribution folds both engines into the same
-# snark -> {msm, ntt, ...} span children.  Nothing bumps it until the
-# graft kernels land: its rows stay zero.
+# snark -> {msm, ntt, ...} span children (attribution survives a
+# backend switch).
 # ---------------------------------------------------------------------------
 
 PHASES = ("msm", "ntt", "gate_eval", "field_ops", "srs")
@@ -101,7 +132,9 @@ _phase_table: dict[str, dict[str, float]] = {
 
 
 def phase_stats() -> dict[str, dict[str, float]]:
-    """Snapshot of the graft backend's per-phase host wall time."""
+    """Snapshot of the graft backend's per-phase host wall time (each
+    entry brings its result back to the host, so wall time includes the
+    device work)."""
     with _phase_lock:
         return {p: dict(row) for p, row in _phase_table.items()}
 
@@ -111,6 +144,13 @@ def reset_phase_stats() -> None:
         for row in _phase_table.values():
             row["calls"] = 0
             row["seconds"] = 0.0
+
+
+def _bump_phase(phase: str, seconds: float) -> None:
+    with _phase_lock:
+        row = _phase_table[phase]
+        row["calls"] += 1
+        row["seconds"] += seconds
 
 
 def phase_delta(before, after):
@@ -129,44 +169,47 @@ def phase_delta(before, after):
 
 
 # ---------------------------------------------------------------------------
-# Kernel entry points: the reference's graft call sites, raising until
-# the kernels are written for the card.
+# Lazy kernel entry points (torch and the kernels load on first graft call)
 # ---------------------------------------------------------------------------
 
 
-def _not_ported(entry: str):
-    raise NotImplementedError(
-        f"zk.graft.{entry} is not ported to protocol_tpu_torch yet ({NOT_PORTED})"
-    )
-
-
 def msm(scalars, points):
-    """Graft MSM over affine G1 points."""
-    _not_ported("msm")
+    """Graft MSM over affine G1 points; exact, identity-aware."""
+    from . import pippenger as _msm
+
+    return _msm.msm(scalars, points)
 
 
 def msm_limbs(arr, cache):
-    """Graft MSM over a prepared point cache with (n, 4) u64 canonical
-    scalar limbs (the ``Setup.commit_limbs`` fast path)."""
-    _not_ported("msm_limbs")
+    """Graft MSM over a prepared :class:`~.pippenger.PointCache` with (n, 4)
+    u64 canonical scalar limbs (the ``Setup.commit_limbs`` fast path)."""
+    from . import pippenger as _msm
+
+    return _msm.msm_limbs(arr, cache)
 
 
 def msm_limbs_batch(arrs, cache):
-    _not_ported("msm_limbs_batch")
+    from . import pippenger as _msm
+
+    return _msm.msm_limbs_batch(arrs, cache)
 
 
 def point_cache(points):
-    """The device-side point preprocessing, once per SRS."""
-    _not_ported("point_cache")
+    """The device-side point preprocessing on the graft device (the
+    caller caches it, one a device)."""
+    from . import pippenger as _msm
+
+    return _msm.PointCache.build(points)
 
 
 def ntt_limbs(arr, root, inverse):
-    """NTT over (n, 4) u64 canonical Fr limbs."""
-    _not_ported("ntt_limbs")
+    """In-place NTT over (n, 4) u64 canonical Fr limbs."""
+    from . import ntt as _ntt
+
+    return _ntt.ntt_limbs(arr, root, inverse)
 
 
 __all__ = [
-    "NOT_PORTED",
     "PHASES",
     "VALID_BACKENDS",
     "ZK_KERNELS",
@@ -182,4 +225,5 @@ __all__ = [
     "set_zk_backend",
     "use_zk_backend",
     "zk_backend",
+    "zk_device",
 ]

@@ -26,9 +26,9 @@ from .fields import G2, G2_GENERATOR, pairing_check
 
 def msm(scalars: list[int], points: list[G1]) -> G1:
     """Multi-scalar multiplication; dispatches on the ``zk_backend``
-    knob — ``native`` runs the C++ kernel when built, else a Python
-    windowed (4-bit bucket) method; ``graft`` (the card Pippenger,
-    ROADMAP A8) raises until it is ported.
+    knob — ``graft`` routes to the card Pippenger (``zk.graft``, on the
+    knob's device), ``native`` to the C++ kernel when built, else a
+    Python windowed (4-bit bucket) method.
 
     Lengths must match exactly: callers that used to rely on the old
     silent ``points[: len(scalars)]`` truncation slice the ladder
@@ -182,12 +182,18 @@ class Setup:
         return msm([c % R for c in coeffs], self.g1_powers[: len(coeffs)])
 
     def _graft_cache(self):
-        """Per-SRS device point cache: the once-per-prove bucket setup
-        the graft Pippenger amortizes across every commit/open MSM."""
-        cache = getattr(self, "_graft_points", None)
+        """Per-SRS point cache on the graft device: the once-per-prove
+        bucket setup the graft Pippenger amortizes across every
+        commit/open MSM.  One a device, so one prover serves a card
+        node and a CPU node side by side."""
+        caches = getattr(self, "_graft_points", None)
+        if caches is None:
+            caches = {}
+            object.__setattr__(self, "_graft_points", caches)
+        device = zk_graft.zk_device()
+        cache = caches.get(device)
         if cache is None:
-            cache = zk_graft.point_cache(self.g1_powers)
-            object.__setattr__(self, "_graft_points", cache)
+            cache = caches[device] = zk_graft.point_cache(self.g1_powers)
         return cache
 
     def commit_limbs(self, arr) -> G1:
@@ -209,8 +215,8 @@ class Setup:
 
         Under ``native`` this is exactly a loop of :meth:`commit_limbs`
         (byte-identical transcripts, trivially); under ``graft`` the
-        batch is to share one point cache, which is where the
-        per-prove bucket-setup amortization lives (ROADMAP A8)."""
+        batch shares one :class:`~.graft.pippenger.PointCache`, which is
+        where the per-prove bucket-setup amortization lives."""
         if zk_graft.zk_backend() == "graft":
             return zk_graft.msm_limbs_batch(arrs, self._graft_cache())
         return [self.commit(a) for a in arrs]

@@ -73,6 +73,7 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "parallel.mesh", "parallel.launch", "parallel.sharded", "parallel.dryrun",
                 "crypto.keccak", "zk.rns", "zk.bn254", "zk.fields", "zk.cs", "zk.gadgets",
                 "zk.chips", "zk.eddsa", "zk.circuit", "zk.transcript", "zk.native", "zk.graft",
+                "zk.graft.field", "zk.graft.ntt", "zk.graft.pippenger", "ops.segments",
                 "zk.kzg", "zk.plonk"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 

@@ -228,17 +228,21 @@ class TestProofs:
         assert ours.prover.verify(ref.pub_ins, ref.proof)
         assert mine.to_raw("commitment").to_json() == ref.to_raw("commitment").to_json()
 
-    def test_plonk_prover_raises_naming_the_roadmap_item(self):
+    def test_plonk_prover_raises_naming_the_roadmap_item(self, monkeypatch):
         """The PLONK prover is ported (``tests/test_torch_plonk_node.py``);
-        what of it is not, the aggregation and the graft kernels, raises
-        naming its ROADMAP item, before any keygen and with no proof
-        cached."""
+        what of it is not, the aggregation, raises naming its ROADMAP item.
+        The graft kernels are ported (A8) and run on the node's device:
+        with none named and no card, the prove raises before any keygen
+        and with no proof cached, and does not fall back to the host."""
+        import torch
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         m = Manager(ManagerConfig(check_circuit=False, zk_backend="graft"))
         assert m.config.prover == "plonk"
         m.generate_initial_attestations()
         with pytest.raises(NotImplementedError, match=r"ROADMAP A5c \(i-b\)"):
             m.aggregate_proofs([Epoch(1)])
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             m.calculate_proofs(Epoch(1))
         assert m._prover is None
         assert not m.cached_proofs

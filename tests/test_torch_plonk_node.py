@@ -6,7 +6,7 @@ the epoch statement and proves it, and its proof is byte-identical to
 the reference node's; each package verifies the other's proof, and a
 checkpoint either package saves with its PLONK proof recovers in the
 other, where the proof verifies.  What is not ported raises naming its
-ROADMAP item."""
+ROADMAP item; ``zk_backend="graft"`` proves on the node's device."""
 
 import pathlib
 
@@ -162,9 +162,28 @@ class TestNotPorted:
             provers[0].generate_verifier_artifact()
 
     def test_graft_backend_raises_naming_a8_and_caches_no_proof(self, provers):
+        """The graft kernels are ported (ROADMAP A8): the node proves under
+        ``zk_backend="graft"`` on its own device, here the CPU its converge
+        runs on.  A recording stub stands in for the PLONK prover so the
+        case stays fast; ``tests/test_torch_zk_graft.py`` proves under graft."""
+        import torch
+
+        from protocol_tpu_torch.zk import graft
+
+        seen = []
+
+        class Recording:
+            def prove(self, pub_ins, witness, *, seed=None):
+                seen.append((graft.zk_backend(), graft.zk_device()))
+                return b"recorded"
+
+            def verify(self, pub_ins, proof):
+                return proof == b"recorded"
+
         m = Manager(ManagerConfig(backend="cuda-windowed", device="cpu", zk_backend="graft",
-                                  **group()), prover=provers[0])
+                                  check_circuit=False, **group()), prover=Recording())
         m.generate_initial_attestations()
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            m.calculate_proofs(Epoch(2))
-        assert not m.cached_proofs
+        m.calculate_proofs(Epoch(2))
+        assert seen == [("graft", torch.device("cpu"))]
+        assert graft.zk_backend() == "native"
+        assert m.get_proof(Epoch(2)).proof == b"recorded"

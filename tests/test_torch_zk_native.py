@@ -4,12 +4,15 @@ own pure-Python fallbacks and against the reference package's runtime,
 bit for bit: MSM, NTT, the gate bytecode evaluator (directly and through
 ``plonk._CosetEvaluator``), the vector field ops and the SRS ladder.  Both
 runtimes export the same C names and live in this one process; each keeps
-its own phase table.  The graft backend knob raises naming ROADMAP A8."""
+its own phase table.  The graft backend knob selects the card kernels
+(ROADMAP A8, ``tests/test_torch_zk_graft.py``) on the device it holds;
+each entry point runs here on the CPU."""
 
 import random
 
 import numpy as np
 import pytest
+import torch
 
 from protocol_tpu.zk import kzg as ref_kzg
 from protocol_tpu.zk import native as ref_native
@@ -193,12 +196,19 @@ class TestGraftKnob:
 
     @pytest.mark.parametrize("select", ["set", "use"])
     def test_graft_raises_naming_a8(self, select):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            if select == "set":
-                graft.set_zk_backend("graft")
-            else:
-                with graft.use_zk_backend("graft"):
-                    pass
+        """The graft kernels are ported (ROADMAP A8): ``set_zk_backend``
+        and ``use_zk_backend`` select ``"graft"`` with its device, and the
+        scoped form restores the native default."""
+        cpu = torch.device("cpu")
+        if select == "set":
+            try:
+                graft.set_zk_backend("graft", device="cpu")
+                assert (graft.zk_backend(), graft.zk_device()) == ("graft", cpu)
+            finally:
+                graft.set_zk_backend("native")
+        else:
+            with graft.use_zk_backend("graft", device="cpu"):
+                assert (graft.zk_backend(), graft.zk_device()) == ("graft", cpu)
         assert graft.zk_backend() == "native"
 
     def test_unknown_backend_is_a_value_error(self):
@@ -207,12 +217,37 @@ class TestGraftKnob:
 
     @pytest.mark.parametrize(
         "entry, args",
-        [("msm", ([], [])), ("msm_limbs", (None, None)), ("msm_limbs_batch", ([], None)),
-         ("point_cache", ([],)), ("ntt_limbs", (None, 1, False))],
+        [("msm", ([5, 7, 0], 3)), ("msm_limbs", ([5, 7, 0], 3)), ("msm_limbs_batch", ([5, 7, 0], 3)),
+         ("point_cache", ([], 3)), ("ntt_limbs", ([1, 2, 3, 4, 5, 6, 7, R - 1], 0))],
     )
     def test_entry_points_raise_naming_a8(self, entry, args):
-        with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-            getattr(graft, entry)(*args)
+        """Each graft entry point runs on the CPU (the kernels' plain
+        versions) and agrees with the native engine."""
+        values, npoints = args
+        points = [GENERATOR.mul(i + 2) for i in range(npoints)]
+        with graft.use_zk_backend("graft", device="cpu"):
+            if entry == "ntt_limbs":
+                d = plonk.Domain(3)
+                got = graft.ntt_limbs(to_limbs(values), d.omega, False)
+            elif entry == "point_cache":
+                cache = graft.point_cache(points)
+                got, want = (cache.n, cache.padded, cache.points.device.type), (3, 4, "cpu")
+            else:
+                cache = graft.point_cache(points)
+                if entry == "msm":
+                    got = graft.msm(values, points)
+                elif entry == "msm_limbs":
+                    got = graft.msm_limbs(to_limbs(values), cache)
+                else:
+                    got = graft.msm_limbs_batch([to_limbs(values), to_limbs(values[:1])], cache)
+        if entry == "ntt_limbs":
+            assert np.array_equal(got, d.ntt_limbs(to_limbs(values), d.omega, False))
+        elif entry in ("msm", "msm_limbs"):
+            assert got == kzg.msm(values, points)
+        elif entry == "msm_limbs_batch":
+            assert got == [kzg.msm(values, points), kzg.msm(values[:1], points[:1])]
+        else:
+            assert got == want
 
     def test_phase_table_has_the_native_shape(self):
         assert graft.PHASES == native.PHASES
