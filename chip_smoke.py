@@ -58,9 +58,11 @@ epochs on the card, launches against the backend's budget, the circuit
 check, the KZG PLONK proof of the last epoch and its verify, with the
 prove's native phase table, and the same node on the CPU proving the
 same bytes.  Then the graft prover kernels (``graft``): K10
-``zk_mulmod``, K11 ``zk_ntt_stage``, K12 ``zk_msm_window`` and K13
-``zk_msm_bucket`` against their plain versions, the graft NTT and MSM
-against the native runtime's, and the same default epoch proved under
+``zk_mulmod``, K11 ``zk_ntt``, K12 ``zk_msm_window`` and K13
+``zk_msm_bucket`` against their plain versions, K11 and K13 beside
+their first forms (``bench/yardsticks.py``: ``ntt_stages``,
+``msm_bucket_chunked``), the graft NTT and MSM against the native
+runtime's, and the same default epoch proved under
 ``zk_backend="graft"`` on the card, its bytes equal to the native
 proof's, every graft call's launches on its declared budget.
 
@@ -549,15 +551,13 @@ GRAFT = dict(k10_n=1 << 20, msm_n=1 << 14, rate_sizes=(1 << 10, 1 << 12, 1 << 14
 IMADS_A_MUL = 2 * 128 + 8
 #: A mixed Jacobian add of an affine point (madd-2007-bl, Z2 = 1): 11 multiplies.
 IMADS_A_MADD = 11 * IMADS_A_MUL
-#: A full Jacobian add (add-2007-bl): 16 multiplies.
-IMADS_A_JADD = 16 * IMADS_A_MUL
 
 
 def graft_wrappers():
     """The graft kernels' wrappers: K10, K11, K12, K13."""
     from protocol_tpu_torch.zk.graft import field, ntt, pippenger
 
-    return (field.field_op, ntt.ntt_stage, pippenger.msm_window, pippenger.msm_bucket)
+    return (field.field_op, ntt.ntt_device, pippenger.msm_window, pippenger.msm_bucket)
 
 
 class GraftCalls:
@@ -632,10 +632,14 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     """The graft prover kernels on the card (K10-K13): each held against
     its plain version on the card at the prove's shapes (K10 bit for bit
     on 2^20 random elements of each field with the edge values first;
-    K11's stages at the extended domain bit for bit; K12's sorted
+    K11's first pass and whole NTT at 2^k and the extended domain,
+    forward and inverse, bit for bit; K12's sorted
     digits equal, and equal to ``torch.sort``'s of the scalars' bytes, and
     its order a permutation that sorts them; K13's
-    buckets equal as affine points); ``ntt_limbs`` under graft against
+    buckets equal as affine points, bucket 0 empty, at 2^14 random and
+    {0, 1} scalars and the n = 33 edge batch), K11 and K13 timed beside
+    their first forms (``earlier_ms``), each rated against a bound that
+    counts what the data needs; ``ntt_limbs`` under graft against
     the native ``zk_ntt`` at 2^k and at the extended size, forward,
     inverse and round trip; ``msm_limbs`` under graft against native at
     2^14 random and {0, 1} scalars and at the reference test's n = 33
@@ -663,6 +667,7 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     from protocol_tpu_torch.zk.graft import ntt as gntt
     from protocol_tpu_torch.zk.graft import pippenger as gpp
     from protocol_tpu_torch.zk.graft import use_zk_backend
+    from protocol_tpu_torch.bench import yardsticks as ys
 
     t_phase = time.perf_counter()
     vk = plonk_ctx["prover"].vk
@@ -713,34 +718,38 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
         )
     rec["k10"] = k10
 
-    # -- K11 at the extended domain, all its stages; ntt_limbs vs native ---
-    m = 1 << ext_k
-    x0 = gf.u64_to_tensor(canonical_words(m), dev)  # canonical, so a valid Montgomery form
-    plan = gntt._device_plan(m, plonk.Domain(ext_k).omega, dev)
-    halves = [1 << j for j in range(ext_k)]
-    xk, xp = x0.clone(), x0.clone()
-    stages_equal = []
-    for h in halves:
-        gntt.ntt_stage(xk, plan[h - 1 : 2 * h - 1], h)
-        gntt._stage_plain(xp, plan[h - 1 : 2 * h - 1], h)
-        stages_equal.append(torch.equal(xk, xp))
-    check(all(stages_equal), f"graft: K11 differs from its plain version at stages {stages_equal}")
-
-    def all_stages(x, fn):
-        for h in halves:
-            fn(x, plan[h - 1 : 2 * h - 1], h)
-
-    k11 = dict(
-        shape=[m, 4], stages=len(halves),
-        ms=time_ms(lambda: all_stages(xk, gntt.ntt_stage)) / len(halves),
-        plain_ms=time_ms(lambda: all_stages(xp, gntt._stage_plain), reps=GRAFT["plain_reps"],
-                         warmup=1) / len(halves),
-        first_stage_ms=time_ms(lambda: gntt.ntt_stage(xk, plan[0:1], 1)),
-        last_stage_ms=time_ms(lambda: gntt.ntt_stage(xk, plan[m // 2 - 1 : m - 1], m // 2)),
-        # a stage reads and writes every element and reads its twiddles
-        # (the plan's m - 1, spread over the stages).
-        **bounds(64 * m + 32 * (m - 1) // len(halves), IMADS_A_MUL * m // 2),
-    )
+    # -- K11 at 2^k and the extended domain; ntt_limbs vs native -----------
+    # Both passes against the plain version's, bit for bit: the first pass
+    # alone, then the whole NTT, forward and inverse; beside them the first
+    # NTT's stages in a row (the yardstick) on the same elements.
+    k11 = {}
+    for kk in (k, ext_k):
+        d = plonk.Domain(kk)
+        x = gf.u64_to_tensor(canonical_words(d.n), dev)
+        row = {}
+        for inverse in (False, True):
+            plan = gntt._device_plan(d.n, d.omega_inv if inverse else d.omega, dev)
+            first = torch.equal(gntt.ntt_device(x, plan, inverse, max_passes=1),
+                                gntt._ntt_plain(x, plan, inverse, None, 1))
+            whole = torch.equal(gntt.ntt_device(x, plan, inverse), gntt._ntt_plain(x, plan, inverse))
+            check(first and whole, f"graft: K11 at 2^{kk} (inverse {inverse}) differs from its "
+                  f"plain version: first pass {first}, whole {whole}")
+            z = x.clone()
+            # A whole NTT reads its input and twiddles once and writes its
+            # output once, and needs a multiply for each butterfly whose
+            # twiddle is not 1 (and the inverse's 1/n products).
+            row["inverse" if inverse else "forward"] = dict(
+                ms=time_ms(lambda: gntt.ntt_device(x, plan, inverse)),
+                plain_ms=time_ms(lambda: gntt._ntt_plain(x, plan, inverse),
+                                 reps=GRAFT["plain_reps"], warmup=1),
+                earlier_ms=time_ms(lambda: ys.ntt_stages(z, plan)),
+                **bounds(64 * d.n + 32 * (d.n - 1),
+                         IMADS_A_MUL * gntt.needed_multiplies(d.n, inverse)),
+            )
+        k11[f"2^{kk}"] = dict(
+            shape=[d.n, 4], passes=gntt.passes(d.n), earlier_launches=kk, **row["forward"],
+            inverse=row["inverse"],
+        )
     ntt_parity = {}
     with calls.recording():
         for kk in sorted({k, ext_k}):
@@ -758,6 +767,10 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
                                   round_trip=bool(np.array_equal(back, vals)))
     check(all(all(v.values()) for v in ntt_parity.values()),
           f"graft: ntt_limbs differs from native zk_ntt: {ntt_parity}")
+    for row in k11.values():
+        for r in (row, row["inverse"]):
+            r["share_of_bound"] = r["bound_ms"] / r["ms"]
+            r["earlier_share_of_bound"] = r["bound_ms"] / r["earlier_ms"]
     rec["k11"], rec["ntt_vs_native"] = k11, ntt_parity
 
     # -- K12, K13 and msm_limbs at 2^14: random, {0, 1}; the n = 33 batch --
@@ -795,30 +808,27 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
             got = gpp.msm_limbs(words, cache)
         want = znative.msm_limbs(words, native_points)
         msm_parity[name] = got == want
-        # What this data needs: a mixed add (the cache's points are
-        # affine) for each non-zero lane past the first of its piece, a
-        # run within one of K13's chunks, and a full add to join each
-        # piece of a bucket past its first.
+        # What this data needs, whatever computes it: a mixed add (the
+        # cache's points are affine) for each non-zero lane past the first
+        # of its bucket.
         nz = int((ds != 0).sum())
-        filled = int((grid[:, 1:, 2] != 0).any(-1).sum())
-        starts = torch.ones_like(ds, dtype=torch.bool)
-        starts[:, 1:] = ds[:, 1:] != ds[:, :-1]
-        starts[:, :: min(mn, gpp.CHUNK)] = True
-        pieces = int((starts & (ds != 0)).sum())
-        madds, jadds = nz - pieces, pieces - filled
+        filled = sum(len(set(row[row != 0].tolist())) for row in ds.cpu())
+        madds = nz - filled
         k12[name] = dict(shape=[mn, 4], ms=time_ms(lambda: gpp.msm_window(st)),
                          plain_ms=time_ms(lambda: gpp._window_plain(st)),
                          library_ms=time_ms(library), library_equal=library_ok,
                          **bounds(32 * mn + 8 * 32 * mn, 0))
         k13[name] = dict(shape=[32, mn], nonzero_lanes=nz, nonempty_buckets=filled,
-                         mixed_adds=madds, full_adds=jadds,
+                         mixed_adds=madds,
                          ms=time_ms(lambda: gpp.msm_bucket(ds, perm, pts)),
+                         earlier_ms=time_ms(lambda: ys.msm_bucket_chunked(ds, perm, pts)),
                          plain_ms=time_ms(lambda: gpp._buckets_plain(ds_p, perm_p, pts),
                                           reps=GRAFT["plain_reps"], warmup=1),
                          # reads the digits, the order and each point once,
                          # writes the grid.
-                         **bounds(8 * 32 * mn + 96 * mn + 32 * 256 * 96,
-                                  IMADS_A_MADD * madds + IMADS_A_JADD * jadds))
+                         **bounds(8 * 32 * mn + 96 * mn + 32 * 256 * 96, IMADS_A_MADD * madds))
+        k13[name]["share_of_bound"] = k13[name]["bound_ms"] / k13[name]["ms"]
+        k13[name]["earlier_share_of_bound"] = k13[name]["bound_ms"] / k13[name]["earlier_ms"]
     # The reference test's edge batch: n = 33 (padded to 64), a zero
     # scalar, r - 1, an identity point and a duplicated point.
     e_scalars = [int.from_bytes(rng.bytes(32), "little") % R for _ in range(33)]
@@ -827,6 +837,15 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     e_points[2] = IDENTITY
     e_points[4] = e_points[3]
     exact = functools.reduce(G1.add, (p.mul(s) for s, p in zip(e_scalars, e_points)), IDENTITY)
+    e_cache = gpp.PointCache.build(e_points, dev)
+    e_words = np.zeros((64, 4), np.uint64)
+    e_words[:33] = to_limbs_fast(e_scalars)
+    e_ds, e_perm = gpp.msm_window(gf.u64_to_tensor(e_words, dev))
+    e_grid = gpp.msm_bucket(e_ds, e_perm, e_cache.points[:64])
+    e_plain = gpp._buckets_plain(e_ds, e_perm, e_cache.points[:64])
+    check(normalized_buckets(e_grid) == normalized_buckets(e_plain) and bool((e_grid[:, 0] == 0).all()),
+          "graft: K13 (the n = 33 edge batch) buckets differ from the plain buckets as points")
+    k13["edge_33"] = dict(shape=[32, 64], equal=True)
     with calls.recording():
         with use_zk_backend("graft", dev):
             from protocol_tpu_torch.zk import kzg
@@ -841,6 +860,9 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     from protocol_tpu_torch.node.manager import ManagerConfig
 
     wrappers = graft_wrappers()
+    # The prove builds its SRS's point cache on the card, as a node's first
+    # graft prove does (K10's launches on the path).
+    srs._graft_points.clear()
     for w in wrappers:
         w.launches = 0
     finish0 = gpp.finish_stats()
@@ -903,15 +925,21 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
         entry("zk_mulmod", "field_op", "protocol_tpu/zk/graft/field.py:266 + :271",
               k10["fq"], launches=launches["field_op"],
               graft_launches=launches["field_op"], fr=k10["fr"]),
-        entry("zk_ntt_stage", "ntt_stage", "protocol_tpu/zk/graft/ntt.py:77", k11,
-              launches=launches["ntt_stage"], graft_launches=launches["ntt_stage"]),
+        entry("zk_ntt", "ntt_device",
+              "protocol_tpu/zk/graft/ntt.py:77 (+ :100, :129)", k11[f"2^{ext_k}"],
+              launches=launches["ntt_device"], graft_launches=launches["ntt_device"],
+              earlier_ms=k11[f"2^{ext_k}"]["earlier_ms"],
+              earlier_source="protocol_tpu_torch/bench/csrc/zk_ntt_stage.cu",
+              sizes=k11),
         entry("zk_msm_window", "msm_window", "protocol_tpu/zk/graft/pippenger.py:142",
               k12["random"], launches=launches["msm_window"],
               graft_launches=launches["msm_window"], skew=k12["zero_one"]),
         entry("zk_msm_bucket", "msm_bucket",
               "protocol_tpu/zk/graft/pippenger.py:150 + :166 + :171", k13["random"],
               launches=launches["msm_bucket"], graft_launches=launches["msm_bucket"],
-              launches_a_call=["fold", "carry", "bucket"], skew=k13["zero_one"]),
+              launches_a_call=["piece", "join"], earlier_ms=k13["random"]["earlier_ms"],
+              earlier_source="protocol_tpu_torch/bench/csrc/zk_msm_bucket_chunked.cu",
+              skew=k13["zero_one"]),
     ]
 
 

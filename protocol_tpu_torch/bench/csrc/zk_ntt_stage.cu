@@ -1,3 +1,8 @@
+// A yardstick, off the main path: the first form of the NTT (K11), one launch a butterfly
+// stage.  protocol_tpu_torch/ops/csrc/zk_ntt.cu replaced it (all the stages in two
+// launches); chip_smoke.py and bench/probe_graft_forms.py time its stages in a row beside
+// that kernel; the port never calls it.  Below, the source as it stood on the main path.
+//
 // K11: one radix-2 decimation-in-time butterfly stage of the Fr NTT, on Hopper.
 //
 // Replaces `protocol_tpu/zk/graft/ntt.py:77` `_stage_fn`: with the n elements cut into

@@ -16,6 +16,13 @@
   and COO steps (``bench/csrc/gather_multiply.cu``), ``w * t[src]``
   written to device memory, which ``ops/sparse.py::ds_cumsum_axis1``
   then scanned.  ``ops/sparse.py::gather_ds_cumsum`` replaced the pair.
+- ``ntt_stage(x, tw, half)``: the first NTT (``bench/csrc/zk_ntt_stage.cu``),
+  one launch a butterfly stage, in place on Montgomery Fr words;
+  ``ntt_stages`` runs them all.  ``zk/graft/ntt.py::ntt_device``
+  (``ops/csrc/zk_ntt.cu``) replaced it.
+- ``msm_bucket_chunked(ds, perm, points)``: the first bucket sums
+  (``bench/csrc/zk_msm_bucket_chunked.cu``), three launches over fixed
+  16-lane chunks.  ``zk/graft/pippenger.py::msm_bucket`` replaced it.
 
 The port never calls them.  Each takes CUDA tensors only and raises
 otherwise; they keep no launch counts.
@@ -103,4 +110,50 @@ def gather_multiply(w: torch.Tensor, t: torch.Tensor, src: torch.Tensor) -> torc
             "gather_multiply", device, w.data_ptr(), t.data_ptr(), src.data_ptr(),
             out.data_ptr(), w.numel(), t.numel(),
         )
+    return out
+
+
+def ntt_stage(x: torch.Tensor, tw: torch.Tensor, half: int) -> None:
+    """One butterfly stage of the first NTT, in place: ``x`` (n, 4) int64
+    words of Montgomery Fr, ``tw`` the stage's (half, 4) twiddles."""
+    n = x.shape[0]
+    if x.dtype != torch.int64 or x.dim() != 2 or x.shape[1] != 4 or tw.dtype != torch.int64:
+        raise ValueError("ntt_stage: x must be an (n, 4) int64 word tensor")
+    if half < 1 or half & (half - 1) or n % (2 * half) or tuple(tw.shape) != (half, 4):
+        raise ValueError(f"ntt_stage: half {half} and twiddles {tuple(tw.shape)} do not fit n = {n}")
+    device = _cuda("zk_ntt_stage", x=x, tw=tw)
+    _build.launch("zk_ntt_stage", device, x.data_ptr(), tw.data_ptr(), n, half)
+
+
+def ntt_stages(x: torch.Tensor, plan: torch.Tensor) -> None:
+    """Every stage of the first NTT over ``x`` in place, bit-reversed
+    input to natural output, with the plan ``zk/graft/ntt.py::_device_plan``
+    caches (stage ``L``'s twiddles from row ``L/2 - 1``): log2(n) launches."""
+    half, n = 1, x.shape[0]
+    while half < n:
+        ntt_stage(x, plan[half - 1 : 2 * half - 1], half)
+        half <<= 1
+
+
+def msm_bucket_chunked(ds: torch.Tensor, perm: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """The first bucket sums on the operands ``msm_bucket`` takes: the
+    (32, 256, 3, 4) word grid, canonical Jacobian Fq, bucket 0 empty."""
+    m = ds.shape[1]
+    if ds.shape != perm.shape or ds.shape[0] != 32 or m < 1 or m & (m - 1):
+        raise ValueError("msm_bucket_chunked: ds and perm must be (32, m), m a power of two")
+    if ds.dtype != torch.int32 or perm.dtype != torch.int32 or tuple(points.shape) != (m, 3, 4):
+        raise ValueError("msm_bucket_chunked: int32 ds and perm, (m, 3, 4) int64 points")
+    device = _cuda("zk_msm_bucket_chunked", ds=ds, perm=perm, points=points)
+    ch = min(m, 16)
+    nch = m // ch
+    tails = torch.empty((32, nch, 3, 4), dtype=torch.int64, device=device)
+    flags = torch.empty((32, nch), dtype=torch.int32, device=device)
+    loc = torch.empty((32, 256, 3, 4), dtype=torch.int64, device=device)
+    carry_from = torch.full((32, 256), -2, dtype=torch.int32, device=device)
+    out = torch.empty((32, 256, 3, 4), dtype=torch.int64, device=device)
+    _build.launch(
+        "zk_msm_bucket_chunked", device, ds.data_ptr(), perm.data_ptr(), points.data_ptr(),
+        tails.data_ptr(), flags.data_ptr(), loc.data_ptr(), carry_from.data_ptr(),
+        out.data_ptr(), m, ch,
+    )
     return out

@@ -88,9 +88,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (x, tw, n, half, stream)
-    "zk_ntt_stage": (
-        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+    # (x, y, plan, scale, n, log_tile, max_passes, stream)
+    "zk_ntt": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     # (scalars, ds, perm, m, stream)
@@ -98,9 +98,9 @@ SIGNATURES = {
         [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
-    # (ds, perm, points, tails, flags, loc, carry_from, out, m, ch, stream)
+    # (ds, perm, points, head, tail, out, m, stream)
     "zk_msm_bucket": (
-        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     ),
     # Yardsticks (bench/csrc).  (x, hi, lo, scratch, n, stream)
@@ -130,13 +130,23 @@ SIGNATURES = {
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # The first K11 and K13.  (x, tw, n, half, stream)
+    "zk_ntt_stage": (
+        [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+    # (ds, perm, points, tails, flags, loc, carry_from, out, m, ch, stream)
+    "zk_msm_bucket_chunked": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 #: The sources under ``bench/csrc``: yardsticks and probes, which may
 #: include a kernel source of ``csrc``.
 BENCH_KERNELS = (
     "compensated_scan_global", "rowsum_tail_scalar", "empty_kernel", "rowsum_tail_forms",
-    "take_along_axis_ldg", "gather_multiply",
+    "take_along_axis_ldg", "gather_multiply", "zk_ntt_stage", "zk_msm_bucket_chunked",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -17,7 +17,8 @@
 //
 // Points are Jacobian (X, Y, Z) over Fq in the Montgomery domain; Z == 0 is the identity.
 // jdbl is dbl-2009-l (7 multiplies) and jadd add-2007-bl (16 multiplies), each with the
-// reference's formulas in the reference's order.  jadd is complete: an identity operand
+// reference's formulas in the reference's order; madd is madd-2007-bl (11 multiplies), the
+// add of a point whose Z is the Montgomery one.  jadd is complete: an identity operand
 // returns the other one, P == -Q gives H == 0 and so Z3 == 0 with no branch, and P == Q
 // (H == 0 and R == 0, neither the identity) takes jdbl, a per-thread branch where the
 // reference patches the batch under `lax.cond`.
@@ -210,48 +211,84 @@ __device__ __forceinline__ Fe from_mont(const Fe& a) {
     return mont_mul<F>(a, one);
 }
 
+// The group law's Montgomery multiply in Fq: M::mul.  MulInline inlines mont_mul at every
+// call; a kernel that holds many group operations may pass a policy that calls one copy.
+struct MulInline {
+    __device__ __forceinline__ static Fe mul(const Fe& a, const Fe& b) { return mont_mul<FQ>(a, b); }
+};
+
 // dbl-2009-l; Z == 0 stays Z == 0.
+template <class M = MulInline>
 __device__ __forceinline__ Point jdbl(const Point& p) {
-    Fe a = mont_mul<FQ>(p.x, p.x);
-    Fe b = mont_mul<FQ>(p.y, p.y);
-    Fe c = mont_mul<FQ>(b, b);
+    Fe a = M::mul(p.x, p.x);
+    Fe b = M::mul(p.y, p.y);
+    Fe c = M::mul(b, b);
     Fe t = add<FQ>(p.x, b);
-    Fe d = sub<FQ>(sub<FQ>(mont_mul<FQ>(t, t), a), c);
+    Fe d = sub<FQ>(sub<FQ>(M::mul(t, t), a), c);
     d = add<FQ>(d, d);
     Fe e = add<FQ>(add<FQ>(a, a), a);
-    Fe f = mont_mul<FQ>(e, e);
+    Fe f = M::mul(e, e);
     Point r;
     r.x = sub<FQ>(f, add<FQ>(d, d));
     Fe c8 = add<FQ>(c, c);
     c8 = add<FQ>(c8, c8);
     c8 = add<FQ>(c8, c8);
-    r.y = sub<FQ>(mont_mul<FQ>(e, sub<FQ>(d, r.x)), c8);
-    Fe z3 = mont_mul<FQ>(p.y, p.z);
+    r.y = sub<FQ>(M::mul(e, sub<FQ>(d, r.x)), c8);
+    Fe z3 = M::mul(p.y, p.z);
     r.z = add<FQ>(z3, z3);
     return r;
 }
 
 // add-2007-bl, complete (see the header note).
+template <class M = MulInline>
 __device__ __forceinline__ Point jadd(const Point& p, const Point& q) {
     if (is_zero(p.z)) return q;
     if (is_zero(q.z)) return p;
-    Fe z1z1 = mont_mul<FQ>(p.z, p.z);
-    Fe z2z2 = mont_mul<FQ>(q.z, q.z);
-    Fe u1 = mont_mul<FQ>(p.x, z2z2);
-    Fe u2 = mont_mul<FQ>(q.x, z1z1);
-    Fe s1 = mont_mul<FQ>(p.y, mont_mul<FQ>(q.z, z2z2));
-    Fe s2 = mont_mul<FQ>(q.y, mont_mul<FQ>(p.z, z1z1));
+    Fe z1z1 = M::mul(p.z, p.z);
+    Fe z2z2 = M::mul(q.z, q.z);
+    Fe u1 = M::mul(p.x, z2z2);
+    Fe u2 = M::mul(q.x, z1z1);
+    Fe s1 = M::mul(p.y, M::mul(q.z, z2z2));
+    Fe s2 = M::mul(q.y, M::mul(p.z, z1z1));
     Fe h = sub<FQ>(u2, u1);
     Fe r = sub<FQ>(s2, s1);
-    if (is_zero(h) && is_zero(r)) return jdbl(p);
-    Fe hh = mont_mul<FQ>(h, h);
-    Fe hhh = mont_mul<FQ>(h, hh);
-    Fe v = mont_mul<FQ>(u1, hh);
-    Fe r2 = mont_mul<FQ>(r, r);
+    if (is_zero(h) && is_zero(r)) return jdbl<M>(p);
+    Fe hh = M::mul(h, h);
+    Fe hhh = M::mul(h, hh);
+    Fe v = M::mul(u1, hh);
+    Fe r2 = M::mul(r, r);
     Point o;
     o.x = sub<FQ>(sub<FQ>(r2, hhh), add<FQ>(v, v));
-    o.y = sub<FQ>(mont_mul<FQ>(r, sub<FQ>(v, o.x)), mont_mul<FQ>(s1, hhh));
-    o.z = mont_mul<FQ>(mont_mul<FQ>(p.z, q.z), h);
+    o.y = sub<FQ>(M::mul(r, sub<FQ>(v, o.x)), M::mul(s1, hhh));
+    o.z = M::mul(M::mul(p.z, q.z), h);
+    return o;
+}
+
+// madd-2007-bl: p plus the point (x2, y2, z2) of the point cache, whose z2 is the
+// Montgomery one (the caller skips a cache identity, z2 == 0): 7 multiplies and 4 squares.
+// Complete as jadd is: an identity p returns the cache point, P == -Q gives H == 0 and so
+// Z3 == 0, and P == Q (H == 0 and S2 == Y1) takes jdbl.
+template <class M = MulInline>
+__device__ __forceinline__ Point madd(const Point& p, const Fe& x2, const Fe& y2, const Fe& z2) {
+    if (is_zero(p.z)) return Point{x2, y2, z2};
+    Fe z1z1 = M::mul(p.z, p.z);
+    Fe u2 = M::mul(x2, z1z1);
+    Fe s2 = M::mul(y2, M::mul(p.z, z1z1));
+    Fe h = sub<FQ>(u2, p.x);
+    Fe sy = sub<FQ>(s2, p.y);
+    if (is_zero(h) && is_zero(sy)) return jdbl<M>(p);
+    Fe hh = M::mul(h, h);
+    Fe i = add<FQ>(hh, hh);
+    i = add<FQ>(i, i);
+    Fe j = M::mul(h, i);
+    Fe r = add<FQ>(sy, sy);
+    Fe v = M::mul(p.x, i);
+    Point o;
+    o.x = sub<FQ>(sub<FQ>(M::mul(r, r), j), add<FQ>(v, v));
+    Fe yj = M::mul(p.y, j);
+    o.y = sub<FQ>(M::mul(r, sub<FQ>(v, o.x)), add<FQ>(yj, yj));
+    Fe zh = add<FQ>(p.z, h);
+    o.z = sub<FQ>(sub<FQ>(M::mul(zh, zh), z1z1), hh);
     return o;
 }
 

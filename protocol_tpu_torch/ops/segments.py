@@ -4,8 +4,9 @@ Values carrying sorted integer ids, folded per id: run-end masks and
 the segmented block-carry scan, dtype- and monoid-agnostic.  The graft
 prover's plain MSM (``zk/graft/pippenger.py``) folds its bucket runs
 with them, the elliptic-curve group as the monoid; its kernel K13
-(``ops/csrc/zk_msm_bucket.cu``) computes the same on the card.  Plain
-PyTorch, any device.
+(``ops/csrc/zk_msm_bucket.cu``) computes the same buckets on the card
+by joining each bucket's pieces, with no carry scan.  Plain PyTorch,
+any device.
 """
 
 from __future__ import annotations

@@ -169,7 +169,7 @@ class Field:
 
     def const(self, v: int, device) -> torch.Tensor:
         """The canonical word form of ``v`` as a (1, 4) int64 tensor on
-        ``device``, made once (the NTT's R^2, 1 and 1/n operands); read only."""
+        ``device``, made once (the NTT's 1/n, the point cache's R^2 and R); read only."""
         key = (v, torch.device(device))
         c = self._consts.get(key)
         if c is None:
@@ -288,8 +288,8 @@ def mulmod_fq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Declared launches (``analysis/budget.py``, kept next to the kernel):
-# K10 converts the NTT's input to and its output from the Montgomery
-# domain and scales the inverse transform; a point cache converts X and Y.
+# K10 converts X and Y of a point cache into the Montgomery domain; the
+# NTT (K11) and the MSM (K12, K13) launch none.
 # ---------------------------------------------------------------------------
 
 from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
@@ -299,11 +299,10 @@ declare_zk(
         kernel="zk-graft-mulmod",
         wrapper="field_op",
         per_call={
-            "ntt_limbs": lambda n, inverse: 0 if n == 1 else 2 + int(inverse),
+            "ntt_limbs": lambda n, inverse: 0,
             "point_cache": lambda n: 2,
             "msm_limbs": lambda n: 0,
         },
-        notes="to_mont, the inverse's 1/n scale and from_mont of each NTT; "
-        "to_mont of X and of Y of a point cache",
+        notes="to_mont of X and of Y of a point cache",
     )
 )

@@ -13,11 +13,14 @@ One MSM on the card is two kernels and the host's last mile:
 - K12 (``ops/csrc/zk_msm_window.cu``, :func:`msm_window`): per window,
   a counting sort of the digits read straight from the scalars: the
   order ``perm`` and the sorted digits ``ds``, (32, m) int32 each;
-- K13 (``ops/csrc/zk_msm_bucket.cu``, :func:`msm_bucket`, three
+- K13 (``ops/csrc/zk_msm_bucket.cu``, :func:`msm_bucket`, two
   launches): every (window, digit) bucket, the points read as
-  ``points[perm]``, summed run by run over fixed chunks of sorted lanes,
-  a segmented carry scan over the chunk tails, then run-end extraction
-  and ``from_mont``, into a (32, 256, 3, 4) word grid;
+  ``points[perm]`` and summed with mixed adds over pieces of
+  ``2^PIECE_LOG`` sorted lanes, a bucket within one piece finished
+  there; then a join of each bucket's pieces by complete adds (by one
+  thread, or by a block where a bucket covers many pieces), empty
+  buckets zeroed, into a (32, 256, 3, 4) word grid out of the
+  Montgomery domain;
 - ``_finish`` on the host: 255 bucket-weighted running sums a window and
   the Horner window combine in exact Python-int Jacobian arithmetic,
   ending in the MSM's one inversion, as in the reference.
@@ -57,8 +60,9 @@ C_BITS = 8
 N_BUCKETS = 1 << C_BITS
 #: The plain version's fold block (the reference's B).
 BLOCK = 64
-#: K13's chunk: sorted lanes one thread adds in a row.
-CHUNK = 16
+#: log2 of K13's piece, the sorted lanes one thread adds in a row
+#: (``PIECE_LOG`` of ``ops/csrc/zk_msm_bucket.cu``): sizes its scratch.
+PIECE_LOG = 4
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +96,38 @@ def _jdbl(p):
     y3 = FQ.sub16(ed, c8)
     z3 = FQ.add16(z3, z3)
     return torch.stack([x3, y3, z3], dim=-2)
+
+
+def _madd(p, q):
+    """The kernel's mixed add (madd-2007-bl, 11 muls) of ``p`` and a
+    point ``q`` of the point cache (Z the Montgomery one, or 0 for the
+    identity, which leaves ``p``): an identity ``p`` gives ``q``;
+    ``P == -Q`` gives ``Z3 = 0``; ``P == Q`` takes the doubling."""
+    x1, y1, z1 = p[..., 0, :], p[..., 1, :], p[..., 2, :]
+    x2, y2, z2 = q[..., 0, :], q[..., 1, :], q[..., 2, :]
+    z1z = is_zero16(z1)
+    z2z = is_zero16(z2)
+    (z1z1,) = _mm((z1, z1))
+    u2, z1c = _mm((x2, z1z1), (z1, z1z1))
+    (s2,) = _mm((y2, z1c))
+    h = FQ.sub16(u2, x1)
+    sy = FQ.sub16(s2, y1)
+    (hh,) = _mm((h, h))
+    i = FQ.add16(hh, hh)
+    i = FQ.add16(i, i)
+    r = FQ.add16(sy, sy)
+    j, v, r2 = _mm((h, i), (x1, i), (r, r))
+    x3 = FQ.sub16(FQ.sub16(r2, j), FQ.add16(v, v))
+    zh = FQ.add16(z1, h)
+    ry, yj, zh2 = _mm((r, FQ.sub16(v, x3)), (y1, j), (zh, zh))
+    y3 = FQ.sub16(ry, FQ.add16(yj, yj))
+    z3 = FQ.sub16(FQ.sub16(zh2, z1z1), hh)
+    gen = torch.stack([x3, y3, z3], dim=-2)
+    need_dbl = is_zero16(h) & is_zero16(sy) & ~z1z & ~z2z
+    if bool(need_dbl.any()):
+        gen = torch.where(need_dbl[..., None, None], _jdbl(p), gen)
+    out = torch.where(z2z[..., None, None], p, gen)
+    return torch.where(z1z[..., None, None], q, out)
 
 
 def _jadd(p, q):
@@ -220,11 +256,11 @@ def msm_bucket(ds: torch.Tensor, perm: torch.Tensor, points: torch.Tensor) -> to
     point cache's first m rows.
 
     On CUDA tensors this launches ``ops/csrc/zk_msm_bucket.cu`` (K13:
-    fold, carry and bucket, three launches in one call; bucket 0, which
-    the host reduction skips, comes out empty) and adds one to
-    ``msm_bucket.launches``; a launch the card refuses raises.  On CPU
-    tensors it is the plain version (bucket 0 summed, as the
-    reference's).  Mixed or other devices raise."""
+    the piece sums, then the join; bucket 0, which the host reduction
+    skips, comes out empty, as every empty bucket, all zeros) and adds
+    its two launches to ``msm_bucket.launches``; a launch the card
+    refuses raises.  On CPU tensors it is the plain version (bucket 0
+    summed, as the reference's).  Mixed or other devices raise."""
     if ds.shape != perm.shape or ds.dim() != 2 or ds.shape[0] != WINDOWS:
         raise ValueError(f"msm_bucket: ds {tuple(ds.shape)} and perm {tuple(perm.shape)} must be (32, m)")
     if ds.dtype != torch.int32 or perm.dtype != torch.int32 or points.dtype != torch.int64:
@@ -236,19 +272,15 @@ def msm_bucket(ds: torch.Tensor, perm: torch.Tensor, points: torch.Tensor) -> to
     device = _build.operand_device("zk_msm_bucket", ds=ds, perm=perm, points=points)
     if device.type == "cpu":
         return _buckets_plain(ds, perm, points)
-    ch = min(m, CHUNK)
-    nch = m // ch
-    tails = torch.empty((WINDOWS, nch, 3, 4), dtype=torch.int64, device=device)
-    flags = torch.empty((WINDOWS, nch), dtype=torch.int32, device=device)
-    loc = torch.empty((WINDOWS, N_BUCKETS, 3, 4), dtype=torch.int64, device=device)
-    carry_from = torch.full((WINDOWS, N_BUCKETS), -2, dtype=torch.int32, device=device)
+    plog = min(PIECE_LOG, m.bit_length() - 1)
+    head = torch.empty((WINDOWS, m >> plog, 3, 4), dtype=torch.int64, device=device)
+    tail = torch.empty_like(head)
     out = torch.empty((WINDOWS, N_BUCKETS, 3, 4), dtype=torch.int64, device=device)
     _build.launch(
         "zk_msm_bucket", device, ds.data_ptr(), perm.data_ptr(), points.data_ptr(),
-        tails.data_ptr(), flags.data_ptr(), loc.data_ptr(), carry_from.data_ptr(),
-        out.data_ptr(), m, ch,
+        head.data_ptr(), tail.data_ptr(), out.data_ptr(), m,
     )
-    msm_bucket.launches += 1
+    msm_bucket.launches += 2
     return out
 
 
@@ -476,8 +508,8 @@ def msm(scalars, points) -> G1:
 
 # ---------------------------------------------------------------------------
 # Declared launches (``analysis/budget.py``, kept next to the kernels): one
-# K12 and one K13 call an MSM; K13's three launches carry the reference's
-# scan (fold, carry) and bucket kernels.
+# K12 and one K13 call an MSM; K13's two launches carry the reference's
+# scan (fold, carry: the piece sums) and bucket kernels (the join).
 # ---------------------------------------------------------------------------
 
 from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
@@ -485,6 +517,10 @@ from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
 
 def _one_an_msm(n: int) -> int:
     return 1 if n else 0
+
+
+def _k13_an_msm(n: int) -> int:
+    return 2 if n else 0
 
 
 declare_zk(
@@ -499,15 +535,15 @@ declare_zk(
     ZkKernelBudget(
         kernel="zk-graft-msm-scan",
         wrapper="msm_bucket",
-        per_call={"msm_limbs": _one_an_msm},
-        notes="K13's fold and carry launches: chunk folds, the segmented scan of their tails",
+        per_call={"msm_limbs": _k13_an_msm},
+        notes="K13's piece launch: mixed adds over pieces of sorted lanes, whole buckets finished",
     )
 )
 declare_zk(
     ZkKernelBudget(
         kernel="zk-graft-msm-bucket",
         wrapper="msm_bucket",
-        per_call={"msm_limbs": _one_an_msm},
-        notes="K13's bucket launch: run-end partials plus carries, from_mont",
+        per_call={"msm_limbs": _k13_an_msm},
+        notes="K13's join launch: the pieces of each bucket added, empty buckets zeroed, from_mont",
     )
 )

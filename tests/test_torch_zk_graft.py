@@ -191,9 +191,28 @@ def test_ntt_stage_plain_equals_the_reference_stage():
     want = ref_ntt._stage_fn()(ref_field.u64_to_limbs(x).reshape(n // 16, 16, 16),
                                ref_field.u64_to_limbs(tw))
     xt = gf.u64_to_tensor(x, CPU)
-    gntt.ntt_stage(xt, gf.u64_to_tensor(tw, CPU), half)
+    gntt._stage_plain(xt, gf.u64_to_tensor(tw, CPU), half)
     assert np.array_equal(gf.u64_to_limbs(gf.tensor_to_u64(xt)), np.asarray(want).reshape(n, 16))
     assert np.array_equal(gntt._bitrev_perm(n), ref_ntt._bitrev_perm(n))
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("log_n", [1, 3, 6, 9])
+def test_needed_multiplies_skip_exactly_the_unit_twiddles(log_n, inverse):
+    """The NTT's operation count (``chip_smoke.py``'s K11 bound) is the
+    butterflies whose twiddle is not 1 plus the inverse's scale: each
+    stage's first twiddle is the Montgomery one, no other is."""
+    n = 1 << log_n
+    d = plonk.Domain(log_n)
+    plan = gntt._twiddle_plan(n, d.omega_inv if inverse else d.omega)
+    words = [int.from_bytes(row.tobytes(), "little") for row in plan]
+    count, half = 0, 1
+    while half < n:
+        row = words[half - 1 : 2 * half - 1]
+        assert row[0] == gf.FR.r and gf.FR.r not in row[1:]
+        count += (n // (2 * half)) * (half - 1)
+        half *= 2
+    assert gntt.needed_multiplies(n, inverse) == count + (n if inverse else 0)
 
 
 def test_ntt_rejects_sizes_and_stage_shapes():
@@ -202,12 +221,99 @@ def test_ntt_rejects_sizes_and_stage_shapes():
             zk_graft.ntt_limbs(to_limbs_fast([1, 2, 3]), plonk.Domain(2).omega, False)
     x = gf.u64_to_tensor(to_limbs_fast([1] * 8), CPU)
     with pytest.raises(ValueError, match="do not fit"):
-        gntt.ntt_stage(x, x[:3], 4)
+        gntt.ntt_device(x, x[:3], False)
+    with pytest.raises(ValueError, match="tile 13"):
+        gntt.ntt_device(x, x[:7], False, tile=13)
+
+
+@functools.cache
+def ntt_references(log_n: int, inverse: bool):
+    """Seeded inputs of 2^log_n points and their transforms by native
+    ``zk_ntt`` and by the reference's graft ``ntt_limbs``."""
+    d = plonk.Domain(log_n)
+    rng = np.random.default_rng(100 + log_n)
+    vals = [rand_scalar(rng) for _ in range(d.n)]
+    vals[0], vals[-1] = R - 1, 0
+    root = d.omega_inv if inverse else d.omega
+    native_out = d.ntt_limbs(to_limbs_fast(vals), root, inverse)
+    ref_out = ref_ntt.ntt_limbs(to_limbs_fast(vals), root, inverse)
+    return d, root, vals, native_out, ref_out
+
+
+@pytest.mark.parametrize("inverse", [False, True], ids=["forward", "inverse"])
+@pytest.mark.parametrize("log_tile", [2, 3])
+@pytest.mark.parametrize("log_n", range(5, 11))
+def test_two_pass_plain_ntt_at_small_tiles(log_n, log_tile, inverse):
+    """K11's plain version at tiles of 4 and 8 points, so 2 to 5 passes:
+    the bit-reverse by index, each pass's plain stages, the scale in the
+    last, equal to native ``zk_ntt`` and to the reference's graft NTT."""
+    d, root, vals, native_out, ref_out = ntt_references(log_n, inverse)
+    assert np.array_equal(native_out, ref_out)
+    x = gf.u64_to_tensor(to_limbs_fast(vals), CPU)
+    plan = gntt._device_plan(d.n, root, CPU)
+    got = gntt.ntt_device(x, plan, inverse, tile=log_tile)
+    assert np.array_equal(gf.tensor_to_u64(got), native_out)
+    stages = gntt.pass_stages(d.n, log_tile)
+    assert [q for _, q in stages] == [log_tile] * (log_n // log_tile) + [log_n % log_tile] * (log_n % log_tile > 0)
+    # The first pass alone: the bit-reversed input after the first log_tile stages.
+    first = gntt.ntt_device(x, plan, inverse, tile=log_tile, max_passes=1)
+    y = x[torch.from_numpy(gntt._bitrev_perm(d.n))]
+    for j in range(log_tile):
+        gntt._stage_plain(y, plan[(1 << j) - 1 : (2 << j) - 1], 1 << j)
+    assert torch.equal(first, y)
 
 
 # ---------------------------------------------------------------------------
 # MSM (K12 and K13's plain versions) against the reference's kernels
 # ---------------------------------------------------------------------------
+
+
+def jacobian16(point: G1, z: int) -> torch.Tensor:
+    """``point`` as Montgomery Jacobian (x z^2, y z^3, z) 16-bit limbs, (3, 16)."""
+    from protocol_tpu_torch.zk.rns import FQ_MODULUS as Q
+
+    xyz = (point.x * z * z % Q, point.y * z * z * z % Q, z) if z else (0, 0, 0)
+    return torch.from_numpy(gf.ints_to_limbs([gf.FQ.to_mont_int(v) for v in xyz]).astype(np.int64))
+
+
+def affine16(p: torch.Tensor):
+    """A (3, 16) Montgomery Jacobian limb tensor as an affine (x, y), or None."""
+    from protocol_tpu_torch.zk.rns import FQ_MODULUS as Q
+
+    x, y, z = (gf.FQ.from_mont_int(v) for v in gf.limbs_to_ints(p.numpy()))
+    if z == 0:
+        return None
+    zi = pow(z, Q - 2, Q)
+    return (x * zi * zi % Q, y * zi * zi * zi % Q)
+
+
+@pytest.mark.parametrize("case", ["random", "identity_cache_point", "identity_sum", "p_equals_q",
+                                  "p_equals_minus_q"])
+def test_madd_equals_jadd_and_the_reference_jadd(case):
+    """K13's mixed add (plain ``_madd``) against the complete add, the
+    port's and the reference's: a Jacobian ``p`` with Z != 1 plus a point
+    of the point cache (Z the Montgomery one, or 0 for the identity)."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(31)
+    a, b = rand_points(rng, 2)
+    z = rand_scalar(rng) or 1
+    p_pt, q_pt, pz = {
+        "random": (a, b, z),
+        "identity_cache_point": (a, IDENTITY, z),
+        "identity_sum": (IDENTITY, b, 0),
+        "p_equals_q": (a, a, z),
+        "p_equals_minus_q": (a, a.neg(), z),
+    }[case]
+    p = jacobian16(p_pt, pz)
+    q = gf.to16(gpp.PointCache.build([q_pt], CPU).points[0])
+    got = gpp._madd(p, q)
+    assert affine16(got) == affine16(gpp._jadd(p, q))
+    ref = np.asarray(ref_pippenger._jadd(jnp.asarray(p.numpy().astype(np.uint32)),
+                                         jnp.asarray(q.numpy().astype(np.uint32))))
+    assert affine16(got) == affine16(torch.from_numpy(ref.astype(np.int64)))
+    want = p_pt.add(q_pt)
+    assert affine16(got) == (None if want == IDENTITY else (want.x, want.y))
 
 
 @pytest.fixture(scope="module")
@@ -429,7 +535,7 @@ def test_zk_registry_and_budget_tables_agree():
 
     names = set(zk_graft.registered_zk_kernels())
     assert names == set(ZK_INVARIANTS) == set(ref_graft.registered_zk_kernels())
-    wrappers = {"field_op": gf.field_op, "ntt_stage": gntt.ntt_stage,
+    wrappers = {"field_op": gf.field_op, "ntt_device": gntt.ntt_device,
                 "msm_window": gpp.msm_window, "msm_bucket": gpp.msm_bucket}
     for budget in ZK_INVARIANTS.values():
         assert isinstance(wrappers[budget.wrapper].launches, int), budget.wrapper
@@ -438,10 +544,13 @@ def test_zk_registry_and_budget_tables_agree():
 @pytest.mark.parametrize(
     "entry, size, want",
     [
-        ("ntt_limbs", dict(n=1 << 14, inverse=False), dict(field_op=2, ntt_stage=14)),
-        ("ntt_limbs", dict(n=1 << 16, inverse=True), dict(field_op=3, ntt_stage=16)),
-        ("ntt_limbs", dict(n=1, inverse=True), dict(field_op=0, ntt_stage=0)),
-        ("msm_limbs", dict(n=33), dict(field_op=0, msm_window=1, msm_bucket=1)),
+        ("ntt_limbs", dict(n=1 << 14, inverse=False), dict(field_op=0, ntt_device=2)),
+        ("ntt_limbs", dict(n=1 << 16, inverse=True), dict(field_op=0, ntt_device=2)),
+        ("ntt_limbs", dict(n=1, inverse=True), dict(field_op=0, ntt_device=0)),
+        ("ntt_limbs", dict(n=1 << 8, inverse=True), dict(field_op=0, ntt_device=1)),
+        ("ntt_limbs", dict(n=1 << 17, inverse=False), dict(field_op=0, ntt_device=2)),
+        ("ntt_limbs", dict(n=1 << 24, inverse=False), dict(field_op=0, ntt_device=2)),
+        ("msm_limbs", dict(n=33), dict(field_op=0, msm_window=1, msm_bucket=2)),
         ("msm_limbs", dict(n=0), dict(field_op=0, msm_window=0, msm_bucket=0)),
         ("point_cache", dict(n=1 << 15), dict(field_op=2)),
     ],
