@@ -544,7 +544,12 @@ def plonk_phase(wrappers, check, emit, smi) -> tuple[dict, dict]:
 
 
 GRAFT = dict(k10_n=1 << 20, msm_n=1 << 14, rate_sizes=(1 << 10, 1 << 12, 1 << 14), rate_reps=3,
-             plain_reps=3, seed=13)
+             plain_reps=3, seed=13,
+             # K12's sweep: every size and skew checked; the powers of two in
+             # k12_timed timed at random and {0, 1} scalars.  Past 2^17 a block's
+             # share of a window spans more than one round.
+             k12_sizes=(1, 33, 1000, 1 << 10, 1 << 14, 1 << 15, 1 << 17, (1 << 17) + 3, (1 << 20) + 5),
+             k12_skews=("random", "zero_one", "zero", "repeated"), k12_timed=(1 << 10, 1 << 14, 1 << 17))
 #: 32-bit multiply-adds of one Montgomery multiply (CIOS, eight 32-bit
 #: limbs): two for each of the 128 full 32x32 -> 64-bit products of a * b
 #: and m * p, one for each of the eight m, of which only the low word is used.
@@ -634,10 +639,10 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     on 2^20 random elements of each field with the edge values first;
     K11's first pass and whole NTT at 2^k and the extended domain,
     forward and inverse, bit for bit; K12's sorted
-    digits equal, and equal to ``torch.sort``'s of the scalars' bytes, and
-    its order a permutation that sorts them; K13's
+    digits and order bit for bit, and equal to a stable ``torch.sort`` of
+    the scalars' bytes, at every size and skew of its sweep; K13's
     buckets equal as affine points, bucket 0 empty, at 2^14 random and
-    {0, 1} scalars and the n = 33 edge batch), K11 and K13 timed beside
+    {0, 1} scalars and the n = 33 edge batch), K11, K12 and K13 timed beside
     their first forms (``earlier_ms``), each rated against a bound that
     counts what the data needs; ``ntt_limbs`` under graft against
     the native ``zk_ntt`` at 2^k and at the extended size, forward,
@@ -682,6 +687,21 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
         w = rng.integers(0, np.iinfo(np.uint64).max, size=(n, 4), dtype=np.uint64, endpoint=True)
         w[:, 3] &= np.uint64((1 << 60) - 1)
         return w
+
+    def k12_scalars(m, skew):
+        """(m, 4) u64 scalar words for K12: ``random`` canonical words,
+        ``zero_one`` scalars 0 or 1, ``zero`` all 0, ``repeated`` one
+        random word m times (every window's digits in one bin)."""
+        if skew == "random":
+            return canonical_words(m)
+        out = np.zeros((m, 4), np.uint64)
+        if skew == "zero_one":
+            out[:, 0] = rng.integers(0, 2, size=m, dtype=np.uint64)
+        elif skew == "repeated":
+            out[:] = canonical_words(1)
+        elif skew != "zero":
+            raise ValueError(f"unknown skew {skew!r}")
+        return out
 
     def entry(name, wrapper, replaces, res, **more):
         return dict(
@@ -773,7 +793,37 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
             r["earlier_share_of_bound"] = r["bound_ms"] / r["earlier_ms"]
     rec["k11"], rec["ntt_vs_native"] = k11, ntt_parity
 
-    # -- K12, K13 and msm_limbs at 2^14: random, {0, 1}; the n = 33 batch --
+    # -- K12 across sizes and skews, against its plain version bit for bit --
+    # The library call: one stable torch.sort of each window's bytes.
+    def library(st):
+        return torch.sort(st.view(torch.uint8).reshape(st.shape[0], 32).t(), dim=-1, stable=True)
+
+    k12 = {}
+    for m in GRAFT["k12_sizes"]:
+        for skew in GRAFT["k12_skews"]:
+            st = gf.u64_to_tensor(k12_scalars(m, skew), dev)
+            ds, perm = gpp.msm_window(st)
+            ds_p, perm_p = gpp._window_plain(st)
+            lib = library(st)
+            e_ds, _ = ys.msm_window_atomic(st)
+            check(torch.equal(ds, ds_p) and torch.equal(perm, perm_p),
+                  f"graft: K12 at m = {m} ({skew}) differs from its plain version")
+            check(torch.equal(lib.values.to(torch.int32), ds) and torch.equal(lib.indices.to(torch.int32), perm),
+                  f"graft: K12 at m = {m} ({skew}) differs from its library call")
+            check(torch.equal(e_ds, ds_p), f"graft: K12's first form at m = {m} ({skew}) differs "
+                  f"from the plain version's digits")
+            if m in GRAFT["k12_timed"] and skew in ("random", "zero_one"):
+                # Reads each scalar's 32 bytes once, writes ds and perm.
+                k12[f"2^{m.bit_length() - 1} {skew}"] = dict(
+                    shape=[m, 4], ms=time_ms(lambda: gpp.msm_window(st)),
+                    earlier_ms=time_ms(lambda: ys.msm_window_atomic(st)),
+                    plain_ms=time_ms(lambda: gpp._window_plain(st)),
+                    library_ms=time_ms(lambda: library(st)), **bounds(32 * m + 8 * 32 * m, 0))
+    for row in k12.values():
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["earlier_share_of_bound"] = row["bound_ms"] / row["earlier_ms"]
+
+    # -- K13 and msm_limbs at 2^14: random, {0, 1}; the n = 33 batch --
     mn = GRAFT["msm_n"]
     with calls.recording():
         with use_zk_backend("graft", dev):
@@ -783,22 +833,13 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     cases = {"random": canonical_words(mn),
              "zero_one": np.zeros((mn, 4), np.uint64)}
     cases["zero_one"][:, 0] = rng.integers(0, 2, size=mn, dtype=np.uint64)
-    msm_parity, k12, k13 = {}, {}, {}
+    msm_parity, k13 = {}, {}
     for name, words in cases.items():
         st = gf.u64_to_tensor(words, dev)
         ds, perm = gpp.msm_window(st)
         ds_p, perm_p = gpp._window_plain(st)
-        digits = gpp._digits(st)
-        perm_ok = bool(torch.equal(torch.sort(perm.long(), dim=-1).values,
-                                   torch.arange(mn, device=dev).expand(32, mn)))
-        sorted_ok = bool(torch.equal(digits.gather(1, perm.long()), ds.long()))
-        # The library call: one unstable torch.sort of each window's bytes.
-        def library():
-            return torch.sort(st.view(torch.uint8).reshape(mn, 32).t(), dim=-1)
-
-        library_ok = bool(torch.equal(library().values.to(torch.int32), ds))
-        check(torch.equal(ds, ds_p) and perm_ok and sorted_ok and library_ok,
-              f"graft: K12 ({name}) differs from its plain version or its library call")
+        check(torch.equal(ds, ds_p) and torch.equal(perm, perm_p),
+              f"graft: K12 ({name}) differs from its plain version")
         grid = gpp.msm_bucket(ds, perm, pts)
         grid_p = gpp._buckets_plain(ds_p, perm_p, pts)
         buckets_ok = normalized_buckets(grid) == normalized_buckets(grid_p)
@@ -814,10 +855,6 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
         nz = int((ds != 0).sum())
         filled = sum(len(set(row[row != 0].tolist())) for row in ds.cpu())
         madds = nz - filled
-        k12[name] = dict(shape=[mn, 4], ms=time_ms(lambda: gpp.msm_window(st)),
-                         plain_ms=time_ms(lambda: gpp._window_plain(st)),
-                         library_ms=time_ms(library), library_equal=library_ok,
-                         **bounds(32 * mn + 8 * 32 * mn, 0))
         k13[name] = dict(shape=[32, mn], nonzero_lanes=nz, nonempty_buckets=filled,
                          mixed_adds=madds,
                          ms=time_ms(lambda: gpp.msm_bucket(ds, perm, pts)),
@@ -841,6 +878,9 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     e_words = np.zeros((64, 4), np.uint64)
     e_words[:33] = to_limbs_fast(e_scalars)
     e_ds, e_perm = gpp.msm_window(gf.u64_to_tensor(e_words, dev))
+    e_ds_p, e_perm_p = gpp._window_plain(gf.u64_to_tensor(e_words, dev))
+    check(torch.equal(e_ds, e_ds_p) and torch.equal(e_perm, e_perm_p),
+          "graft: K12 (the n = 33 edge batch) differs from its plain version")
     e_grid = gpp.msm_bucket(e_ds, e_perm, e_cache.points[:64])
     e_plain = gpp._buckets_plain(e_ds, e_perm, e_cache.points[:64])
     check(normalized_buckets(e_grid) == normalized_buckets(e_plain) and bool((e_grid[:, 0] == 0).all()),
@@ -854,7 +894,8 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
     edge_native = znative.msm_limbs(to_limbs_fast(e_scalars), znative._points_to_limbs(e_points))
     msm_parity["edge_33"] = edge_got == exact and edge_native == exact
     check(all(msm_parity.values()), f"graft: msm_limbs differs from native: {msm_parity}")
-    rec.update(msm_vs_native=msm_parity, k12=k12, k13=k13)
+    rec.update(msm_vs_native=msm_parity, k12=k12, k13=k13,
+               k12_checked=[[m, skew] for m in GRAFT["k12_sizes"] for skew in GRAFT["k12_skews"]])
 
     # -- the default epoch proved under graft, against the native card proof --
     from protocol_tpu_torch.node.manager import ManagerConfig
@@ -932,8 +973,10 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
               earlier_source="protocol_tpu_torch/bench/csrc/zk_ntt_stage.cu",
               sizes=k11),
         entry("zk_msm_window", "msm_window", "protocol_tpu/zk/graft/pippenger.py:142",
-              k12["random"], launches=launches["msm_window"],
-              graft_launches=launches["msm_window"], skew=k12["zero_one"]),
+              k12["2^14 random"], launches=launches["msm_window"],
+              graft_launches=launches["msm_window"], earlier_ms=k12["2^14 random"]["earlier_ms"],
+              earlier_source="protocol_tpu_torch/bench/csrc/zk_msm_window_atomic.cu",
+              skew=k12["2^14 zero_one"], sizes=k12),
         entry("zk_msm_bucket", "msm_bucket",
               "protocol_tpu/zk/graft/pippenger.py:150 + :166 + :171", k13["random"],
               launches=launches["msm_bucket"], graft_launches=launches["msm_bucket"],

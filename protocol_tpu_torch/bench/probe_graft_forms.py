@@ -1,4 +1,4 @@
-"""The graft prover's bucket sums (K13) and NTT (K11) on the card, launch by launch.
+"""The graft prover's digit sort (K12), bucket sums (K13) and NTT (K11) on the card, launch by launch.
 
     python -m protocol_tpu_torch.bench.probe_graft_forms [--sections a,b,...]
 
@@ -27,6 +27,12 @@ Sections (all by default), each one JSON line on stdout:
   NTT and each pass's trace time, beside the first NTT's stages in a row.
 - ``ntt_host``: one 2^17 inverse ``ntt_limbs`` on the path, part by part:
   the upload, the kernel's passes, the download and copy back.
+- ``k12``: the digit sort on the path (``zk/graft/pippenger.py::msm_window``)
+  and the first form (``yardsticks.msm_window_atomic``) at m in
+  ``K12_SIZES`` and the four skews of ``k12_scalars``: each checked
+  against the plain version (the path's ``ds`` and ``perm`` bit for bit,
+  the first form's ``ds`` and a ``perm`` that sorts), event times of both
+  and the plain version, and at 2^14 each form's device time from a trace.
 
 Each line names the card (``nvidia-smi`` name and power limit); with
 ``--out PATH`` the lines are also appended to that file.
@@ -56,9 +62,12 @@ from ._timing import device_events, time_ms, trace_session
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 SRS = ROOT / "data" / "srs-15.bin"
-SECTIONS = ("build", "k13_earlier", "k11_earlier", "ntt_host_earlier", "k13", "k11", "ntt_host")
+SECTIONS = ("build", "k13_earlier", "k11_earlier", "ntt_host_earlier", "k13", "k11", "ntt_host",
+            "k12")
 GRAFT_SOURCES = ("zk_mulmod", "zk_msm_window", "zk_msm_bucket", "zk_ntt",
-                 "zk_msm_bucket_chunked", "zk_ntt_stage")
+                 "zk_msm_bucket_chunked", "zk_ntt_stage", "zk_msm_window_atomic")
+K12_SIZES = (1 << 10, 1 << 14, 1 << 15, 1 << 17)
+K12_SKEWS = ("random", "zero_one", "zero", "repeated")
 MSM_N = 1 << 14
 NTT_KS = (14, 17)
 #: Calls in a trace session; host-clock repetitions of the host split.
@@ -85,6 +94,22 @@ def canonical_words(rng, n: int) -> np.ndarray:
     w = rng.integers(0, np.iinfo(np.uint64).max, size=(n, 4), dtype=np.uint64, endpoint=True)
     w[:, 3] &= np.uint64((1 << 60) - 1)
     return w
+
+
+def k12_scalars(rng, m: int, skew: str) -> np.ndarray:
+    """(m, 4) u64 scalar words for K12: ``random`` canonical words,
+    ``zero_one`` scalars 0 or 1, ``zero`` all 0, ``repeated`` one random
+    word m times (every window's digits in one bin)."""
+    if skew == "random":
+        return canonical_words(rng, m)
+    out = np.zeros((m, 4), np.uint64)
+    if skew == "zero_one":
+        out[:, 0] = rng.integers(0, 2, size=m, dtype=np.uint64)
+    elif skew == "repeated":
+        out[:] = canonical_words(rng, 1)
+    elif skew != "zero":
+        raise ValueError(f"unknown skew {skew!r}")
+    return out
 
 
 def ptxas_table(log: str) -> dict:
@@ -317,6 +342,32 @@ def ntt_host(dev, rng) -> dict:
     return dict(n=d.n, inverse=True, **_host_parts(parts))
 
 
+def k12(dev, rng) -> dict:
+    rec = {}
+    for m in K12_SIZES:
+        row = {}
+        for skew in K12_SKEWS:
+            st = gf.u64_to_tensor(k12_scalars(rng, m, skew), dev)
+            ds, perm = gpp.msm_window(st)
+            ds_p, perm_p = gpp._window_plain(st)
+            e_ds, e_perm = ys.msm_window_atomic(st)
+            digits = gpp._digits(st)
+            e_sorts = torch.equal(digits.gather(1, e_perm.long()), e_ds.long()) and torch.equal(
+                torch.sort(e_perm, dim=-1).values, torch.arange(m, device=dev, dtype=torch.int32).expand(32, m))
+            row[skew] = dict(
+                equal=bool(torch.equal(ds, ds_p) and torch.equal(perm, perm_p)),
+                earlier_equal=bool(torch.equal(e_ds, ds_p) and e_sorts),
+                ms=time_ms(lambda: gpp.msm_window(st)),
+                earlier_ms=time_ms(lambda: ys.msm_window_atomic(st)),
+                plain_ms=time_ms(lambda: gpp._window_plain(st)),
+            )
+            if m == 1 << 14 and skew in ("random", "zero_one"):
+                row[skew]["trace"] = traced(lambda: gpp.msm_window(st))
+                row[skew]["earlier_trace"] = traced(lambda: ys.msm_window_atomic(st))
+        rec[f"2^{m.bit_length() - 1}"] = row
+    return rec
+
+
 def run(sections=SECTIONS, tiles=(None,), out=None) -> list[dict]:
     dev = resolve_device(None)
     smi = _smi()
@@ -341,7 +392,7 @@ def run(sections=SECTIONS, tiles=(None,), out=None) -> list[dict]:
              ptxas={name: ptxas_table(r["log"]) for name, r in report.items()})
     jobs = dict(k13_earlier=k13_earlier, k11_earlier=k11_earlier,
                 ntt_host_earlier=ntt_host_earlier, k13=k13,
-                k11=lambda d, r: k11(d, r, tiles), ntt_host=ntt_host)
+                k11=lambda d, r: k11(d, r, tiles), ntt_host=ntt_host, k12=k12)
     for name in SECTIONS[1:]:
         if name in sections:
             t0 = time.perf_counter()

@@ -23,6 +23,11 @@
 - ``msm_bucket_chunked(ds, perm, points)``: the first bucket sums
   (``bench/csrc/zk_msm_bucket_chunked.cu``), three launches over fixed
   16-lane chunks.  ``zk/graft/pippenger.py::msm_bucket`` replaced it.
+- ``msm_window_atomic(scalars)``: the first digit sort
+  (``bench/csrc/zk_msm_window_atomic.cu``), one block a window with
+  warp-aggregated shared atomics, not stable: ``ds`` as the path's,
+  ``perm`` a permutation that sorts the digits.
+  ``zk/graft/pippenger.py::msm_window`` replaced it.
 
 The port never calls them.  Each takes CUDA tensors only and raises
 otherwise; they keep no launch counts.
@@ -157,3 +162,18 @@ def msm_bucket_chunked(ds: torch.Tensor, perm: torch.Tensor, points: torch.Tenso
         out.data_ptr(), m, ch,
     )
     return out
+
+
+def msm_window_atomic(scalars: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The first digit sort on the operand ``msm_window`` takes: ``(ds,
+    perm)``, (32, m) int32, the order within a digit the atomics'."""
+    if scalars.dtype != torch.int64 or scalars.dim() != 2 or scalars.shape[1] != 4:
+        raise ValueError("msm_window_atomic: scalars must be an (m, 4) int64 word tensor")
+    device = _cuda("zk_msm_window_atomic", scalars=scalars)
+    m = scalars.shape[0]
+    ds = torch.empty((32, m), dtype=torch.int32, device=device)
+    perm = torch.empty_like(ds)
+    if m:
+        _build.launch("zk_msm_window_atomic", device, scalars.data_ptr(), ds.data_ptr(),
+                      perm.data_ptr(), m)
+    return ds, perm

@@ -140,6 +140,11 @@ SIGNATURES = {
         [ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    # The first K12.  (scalars, ds, perm, m, stream)
+    "zk_msm_window_atomic": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }
 
 #: The sources under ``bench/csrc``: yardsticks and probes, which may
@@ -147,6 +152,7 @@ SIGNATURES = {
 BENCH_KERNELS = (
     "compensated_scan_global", "rowsum_tail_scalar", "empty_kernel", "rowsum_tail_forms",
     "take_along_axis_ldg", "gather_multiply", "zk_ntt_stage", "zk_msm_bucket_chunked",
+    "zk_msm_window_atomic",
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -11,8 +11,9 @@ every MSM over a prefix of the SRS slices it and converts nothing.
 One MSM on the card is two kernels and the host's last mile:
 
 - K12 (``ops/csrc/zk_msm_window.cu``, :func:`msm_window`): per window,
-  a counting sort of the digits read straight from the scalars: the
-  order ``perm`` and the sorted digits ``ds``, (32, m) int32 each;
+  a stable counting sort of the digits read straight from the scalars,
+  over a cluster of blocks: the order ``perm`` (the reference's
+  ``jnp.argsort`` order) and the sorted digits ``ds``, (32, m) int32 each;
 - K13 (``ops/csrc/zk_msm_bucket.cu``, :func:`msm_bucket`, two
   launches): every (window, digit) bucket, the points read as
   ``points[perm]`` and summed with mixed adds over pieces of
@@ -33,9 +34,11 @@ scatters and one combine, so at one block they give the reference's
 Jacobian buckets limb for limb.  Over several blocks the port starts a
 carry segment also where a block's first digit differs from the block
 before it: the reference does not, and there its bucket is wrong
-(ROADMAP §C).  K12's sort is not stable, so K13's buckets equal the
-plain ones as points, not as Jacobian limbs; the MSM's result is exact
-either way.
+(ROADMAP §C).  K12's sort is stable, so its ``perm`` equals the plain
+version's bit for bit; K13 adds a bucket's points in pieces of
+``2^PIECE_LOG`` lanes and joins them, another grouping than the 64-lane
+fold, so its buckets equal the plain ones as points, not as Jacobian
+limbs; the MSM's result is exact either way.
 """
 
 from __future__ import annotations
@@ -176,11 +179,13 @@ def msm_window(scalars: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Each window's digits sorted: ``(ds, perm)``, (32, m) int32, with
     ``digits[w, perm[w]] == ds[w]``, from (m, 4) int64 scalar words.
 
-    On CUDA tensors this launches ``ops/csrc/zk_msm_window.cu`` (K12,
-    a counting sort a window, not stable) and adds one to
-    ``msm_window.launches``; a launch the card refuses raises.  On CPU
-    tensors it is the plain version (a stable sort).  Mixed or other
-    devices raise."""
+    The order is stable: within one digit the lanes keep their order,
+    so ``perm`` is the reference's ``jnp.argsort`` order and the kernel
+    equals the plain version bit for bit.  On CUDA tensors this launches
+    ``ops/csrc/zk_msm_window.cu`` (K12, a counting sort over a cluster
+    of blocks a window) once and adds one to ``msm_window.launches``; a
+    launch the card refuses raises.  On CPU tensors it is the plain
+    version (a stable sort).  Mixed or other devices raise."""
     if scalars.dtype != torch.int64 or scalars.dim() != 2 or scalars.shape[1] != 4:
         raise ValueError("msm_window: scalars must be an (m, 4) int64 word tensor")
     m = scalars.shape[0]
@@ -528,7 +533,8 @@ declare_zk(
         kernel="zk-graft-msm-window",
         wrapper="msm_window",
         per_call={"msm_limbs": _one_an_msm},
-        notes="the per-window counting sort; the only random reads are K13's points[perm]",
+        notes="the per-window stable counting sort, a cluster of blocks a window; "
+              "the only random reads are K13's points[perm]",
     )
 )
 declare_zk(

@@ -361,6 +361,65 @@ def test_plain_buckets_equal_the_reference_kernels_at_n33(edge_batch):
     assert gpp._finish(got) == exact_msm(scalars, points)
 
 
+def window_words(case: str, edge_batch) -> np.ndarray:
+    """(m, 4) u64 scalar words of one ``window`` case."""
+    rng = np.random.default_rng(37)
+    if case.startswith("random"):
+        m = int(case.split("_")[1])
+        return to_limbs_fast([rand_scalar(rng) for _ in range(m)])
+    if case == "edge_33":
+        return np.concatenate([to_limbs_fast(edge_batch[0]), np.zeros((31, 4), np.uint64)])
+    m = 1024
+    out = np.zeros((m, 4), np.uint64)
+    if case == "zero_one":
+        out[:, 0] = rng.integers(0, 2, size=m, dtype=np.uint64)
+    elif case == "repeated":
+        out[:] = to_limbs_fast([rand_scalar(rng)])
+    return out
+
+
+@pytest.mark.parametrize("case", ["random_64", "random_4096", "zero_one", "zero", "repeated", "edge_33"])
+def test_plain_window_order_equals_the_reference_window(case, edge_batch):
+    """The reference's own jitted ``window`` with ``jnp.arange(m)`` as its
+    points gathers exactly its order (``jnp.argsort``, stable): the plain
+    version's ``ds`` and ``perm``, which K12 reproduces on the card, equal
+    that ``ds`` and that order bit for bit."""
+    import jax.numpy as jnp
+
+    words = window_words(case, edge_batch)
+    m = words.shape[0]
+    digits = words.view(np.uint8).reshape(m, 32).T
+    ds_ref, order_ref = ref_pippenger._kernels()["window"](
+        jnp.asarray(digits.astype(np.int32)), jnp.arange(m, dtype=jnp.int32))
+    ds, perm = gpp.msm_window(gf.u64_to_tensor(words, CPU))
+    assert ds.dtype == perm.dtype == torch.int32
+    assert np.array_equal(ds.numpy(), np.asarray(ds_ref))
+    assert np.array_equal(perm.numpy(), np.asarray(order_ref))
+
+
+def test_window_wrapper_on_the_cpu_is_the_plain_version_and_counts_no_launch():
+    words = window_words("random_64", None)
+    st = gf.u64_to_tensor(words, CPU)
+    before = gpp.msm_window.launches
+    ds, perm = gpp.msm_window(st)
+    assert gpp.msm_window.launches == before
+    assert ds.dtype == perm.dtype == torch.int32 and tuple(ds.shape) == (32, 64)
+    ds_p, perm_p = gpp._window_plain(st)
+    assert torch.equal(ds, ds_p) and torch.equal(perm, perm_p)
+    empty = gpp.msm_window(torch.zeros((0, 4), dtype=torch.int64))
+    assert all(tuple(a.shape) == (32, 0) for a in empty)
+
+
+@pytest.mark.parametrize(
+    "bad", [torch.zeros((4, 4), dtype=torch.int32), torch.zeros((4, 3), dtype=torch.int64),
+            torch.zeros(16, dtype=torch.int64)],
+    ids=["int32", "three_words", "flat"],
+)
+def test_window_wrapper_refuses_other_operands(bad):
+    with pytest.raises(ValueError, match="msm_window"):
+        gpp.msm_window(bad)
+
+
 def test_msm_edge_batch_through_kzg(edge_batch):
     scalars, points = edge_batch
     reference = exact_msm(scalars, points)
