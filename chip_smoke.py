@@ -64,17 +64,32 @@ their first forms (``bench/yardsticks.py``: ``ntt_stages``,
 ``msm_bucket_chunked``), the graft NTT and MSM against the native
 runtime's, and the same default epoch proved under
 ``zk_backend="graft"`` on the card, its bytes equal to the native
-proof's, every graft call's launches on its declared budget.
+proof's, every graft call's launches on its declared budget.  Last the
+two planes (``planes``): the node cell's 64-member group admitted
+through ``IngestPlane`` with 0 and 2 spawned verify workers and on the
+CPU (a burst past the submit queue, re-attestations with rising nonces,
+a replay, a stale nonce, a bad signature, a structurally invalid item),
+every verdict equal across the runs and to the direct
+``add_attestations_bulk``, sigs/s, the admitted group converged on the
+card; then the plonk cell's default node ticking as the reference's
+server does in async mode, 3 ticks at its 10 s epoch interval, each
+proof proved by one spawned, prewarmed worker of ``ProvingPlane`` —
+under ``native`` and under ``graft``, where the worker launches K10-K13
+in its own CUDA context — every landed proof equal to the sync proof's
+bytes and verifying, no job failed, with the ticks' wall seconds, proof
+lag, the worker's prove seconds and the share of them inside the tick
+loop.
 
-Every phase prints one JSON line.  Before the last line come the card's
+Every phase prints its JSON lines.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
 (per kernel: launches on its path — the windowed headline converge for
 K1 and K5-K8 (K5 launches on no other path), the CSR headline converge
 for K9, the probes phase for
 K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on the node's card converges by backend
 (``node_launches``), on the PLONK node's card converges
-(``plonk_launches``), on each rank of the sharded headline converges by
-backend (``sharded_launches``), agreement with the plain version, its
+(``plonk_launches``), on the planes phase's converges and in its graft
+worker (``planes_launches``), on each rank of the sharded headline
+converges by backend (``sharded_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -538,9 +553,11 @@ def plonk_phase(wrappers, check, emit, smi) -> tuple[dict, dict]:
     check(rec["proof_equal"], "plonk: the card node's proof differs from the CPU node's")
     total = sum(card["pub_ins"]) % field.MODULUS
     check(total == 5 * 1000, f"plonk: public scores sum to {total} in the field, not 5000")
-    shutil.rmtree(keys.parent, ignore_errors=True)
     emit("plonk", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
-    return totals, dict(prover=prover, atts=atts, config=config, card=card, trust_wrappers=wrappers)
+    # The key cache stays for the planes phase's prover workers, which
+    # remove it.
+    return totals, dict(prover=prover, atts=atts, config=config, card=card, trust_wrappers=wrappers,
+                        keys=keys)
 
 
 GRAFT = dict(k10_n=1 << 20, msm_n=1 << 14, rate_sizes=(1 << 10, 1 << 12, 1 << 14), rate_reps=3,
@@ -984,6 +1001,446 @@ def graft_phase(plonk_ctx, check, emit, smi) -> list[dict]:
               earlier_source="protocol_tpu_torch/bench/csrc/zk_msm_bucket_chunked.cu",
               skew=k13["zero_one"]),
     ]
+
+
+PLANES = dict(
+    # Admission: the node cell's seeded group, verify pools of 0 and 2
+    # spawned workers, then rounds of the group's attestations for sigs/s.
+    group=64, batch_size=16, verify_workers=(0, 2), rounds=8,
+    # Async proving: the plonk cell's default node, one spawned prewarmed
+    # prover worker, ticks paced at the reference's epoch_interval
+    # (protocol_tpu/node/config.py:16), under each proving engine.
+    ticks=3, interval_s=10.0, zk_backends=("native", "graft"), prove_timeout_s=600.0,
+)
+
+
+def reset_worker_launches() -> int:
+    """Run in a prover worker: every graft wrapper's count set to 0.
+    Returns the worker's pid."""
+    for w in graft_wrappers():
+        w.launches = 0
+    return os.getpid()
+
+
+def read_worker_launches() -> tuple[int, dict]:
+    """Run in a prover worker: its pid and each graft wrapper's count."""
+    return os.getpid(), {w.__name__: w.launches for w in graft_wrappers()}
+
+
+def pool_processes(pool) -> list:
+    """The live worker processes of a verify or prover pool."""
+    _, executor = pool._snapshot()
+    return list(getattr(executor, "_processes", {}).values()) if executor is not None else []
+
+
+def join_processes(procs) -> None:
+    """Wait for a closed pool's workers to exit; terminate stragglers."""
+    for p in procs:
+        p.join(timeout=30)
+        if p.is_alive():
+            p.terminate()
+            p.join(timeout=10)
+
+
+def admission_stream(fixed_set, atts):
+    """The admission cell's submissions, ``(pre, post)``, each a list of
+    ``(attestation, nonce)``: ``pre`` goes in before the plane starts,
+    the group's attestations (nonce 1), which fill a submit queue of the
+    group's size, then a burst of 4 fresh re-attestations past it; after
+    the start, ``post``: 4 re-attestations of member 0 with rising
+    nonces, a replay, a stale nonce, a bad signature and a structurally
+    invalid item."""
+    from protocol_tpu_torch.crypto import calculate_message_hash
+    from protocol_tpu_torch.crypto.eddsa import sign
+    from protocol_tpu_torch.node.attestation import Attestation
+    from protocol_tpu_torch.node.bootstrap import keyset_from_raw
+
+    sks, pks = keyset_from_raw(fixed_set)
+    n = len(pks)
+
+    def moved(i, step):
+        """Member i's row with ``step`` units moved from its largest
+        score to a neighbour's: still summing to SCALE, no self-score."""
+        row = list(atts[i].scores)
+        k = max((j for j in range(n) if j != i), key=lambda j: row[j])
+        m = (i + 1) % n if k != (i + 1) % n else (i + 2) % n
+        row[k] -= step
+        row[m] += step
+        return row
+
+    def signed(i, scores, signed_scores=None):
+        _, msgs = calculate_message_hash(pks, [signed_scores or scores])
+        return Attestation(sig=sign(sks[i], pks[i], msgs[0]), pk=pks[i], neighbours=list(pks),
+                           scores=scores)
+
+    pre = [(a, 1) for a in atts] + [(signed(i, moved(i, 1)), 2) for i in range(4, 8)]
+    post = [(signed(0, moved(0, s)), 1 + s) for s in range(1, 5)]
+    mismatch = signed(6, moved(6, 2))
+    post += [
+        (atts[10], 1),                                   # replay
+        (signed(0, moved(0, 5)), 3),                     # stale nonce
+        (signed(5, moved(5, 2), atts[5].scores), 2),     # bad signature
+        (Attestation(sig=mismatch.sig, pk=mismatch.pk, neighbours=list(reversed(pks)),
+                     scores=mismatch.scores), None),     # group mismatch
+    ]
+    return pre, post
+
+
+def verify_split(fixed_set, atts) -> dict:
+    """Host milliseconds an item of the group's attestations spends in
+    each step of admission, one batch of the whole group each: the wire
+    form intake digests, the message hash (a Poseidon sponge over the
+    score row), the native batch EdDSA, and ``verify_batch`` whole."""
+    from protocol_tpu_torch.crypto import group_pks_hash, message_hash_batch
+    from protocol_tpu_torch.crypto import native as cnative
+    from protocol_tpu_torch.ingest.workers import verify_batch
+    from protocol_tpu_torch.node.attestation import AttestationData
+    from protocol_tpu_torch.node.bootstrap import keyset_from_raw
+
+    _, pks = keyset_from_raw(fixed_set)
+    pks_hash = group_pks_hash(pks)
+    items = [(a.sig.big_r.x, a.sig.big_r.y, a.sig.s, a.pk.point.x, a.pk.point.y, tuple(a.scores))
+             for a in atts]
+
+    def ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3 / len(items)
+
+    _, wire = ms(lambda: [AttestationData.from_attestation(a).to_bytes() for a in atts])
+    msgs, hashing = ms(lambda: message_hash_batch(pks_hash, [list(a.scores) for a in atts]))
+    ok, eddsa = ms(lambda: cnative.eddsa_verify_batch(*([it[k] for it in items] for k in range(5)), msgs))
+    whole_ok, whole = ms(lambda: verify_batch(pks_hash, items))
+    check(all(ok) and all(whole_ok), "planes: the group's signatures do not verify")
+    return dict(wire_form=wire, message_hash=hashing, eddsa=eddsa, verify_batch=whole)
+
+
+def run_admission(config, pre, post, workers, rounds, wrappers):
+    """The stream through an ``IngestPlane`` in front of a fresh manager
+    of ``config`` with ``workers`` spawned verify workers (an injected
+    clock and an open rate gate, so every verdict is a function of the
+    stream), then ``rounds`` of the group's attestations for sigs/s (two
+    epoch rotations before each, so the dedup cache has forgotten them),
+    then one epoch converged from what the plane admitted."""
+    from protocol_tpu_torch.ingest import IngestPlane, IngestPlaneConfig
+    from protocol_tpu_torch.ingest.ratelimit import AdmissionPolicy, RateLimitConfig
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager
+
+    group = [a for a, _ in pre[:PLANES["group"]]]
+    manager = Manager(config)
+    rate = RateLimitConfig(rate=1e6, burst=1e6)
+    plane = IngestPlane(manager, IngestPlaneConfig(
+        workers=workers, batch_size=PLANES["batch_size"], submit_queue_max=len(group), rate=rate))
+    plane.policy = AdmissionPolicy(rate, clock=lambda: 0.0)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        futures = [plane.submit(att, nonce=nonce) for att, nonce in pre]
+        plane.start()
+        check(plane.drain(120), f"planes: the admission stream did not drain ({workers} workers)")
+        futures += [plane.submit(att, nonce=nonce) for att, nonce in post]
+        check(plane.drain(120), f"planes: the admission stream did not drain ({workers} workers)")
+        stream_s = time.perf_counter() - t0
+        verdicts = [(f.result().accepted, f.result().reason) for f in futures]
+        cache = sorted((h, tuple(a.scores)) for h, a in manager.attestations.items())
+        for w in wrappers:
+            w.launches = 0
+        result = manager.converge_epoch(Epoch(0), **NODE_KW)
+        launches = {w.__name__: w.launches for w in wrappers}
+        accepted0 = plane.stats()["accepted"]
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            plane.advance_epoch()
+            plane.advance_epoch()
+            for att in group:
+                plane.submit(att)
+            check(plane.drain(120), f"planes: a throughput round did not drain ({workers} workers)")
+        rounds_s = time.perf_counter() - t0
+        stats = plane.stats()
+        procs = pool_processes(plane.pool)
+    finally:
+        plane.close()
+        join_processes(procs)
+    sigs = stats["accepted"] - accepted0
+    check(sigs == rounds * len(group), f"planes: {sigs} of {rounds * len(group)} round items accepted")
+    return dict(verdicts=verdicts, stream_s=stream_s, sigs=sigs, rounds_s=rounds_s,
+                sigs_per_s=sigs / rounds_s if sigs else None, worker_processes=len(procs),
+                stats=stats, iterations=result.iterations, scores=result.scores,
+                launches=launches, cache=cache)
+
+
+def run_async(plonk_ctx, zk_backend, wrappers, check):
+    """The plonk cell's default node ticking the way the reference's
+    server does in async mode (``protocol_tpu/node/server.py:596-652``):
+    each tick converges on the card under the epoch's trace root, then
+    enqueues ``build_proof_job`` on a ``ProvingPlane`` with one spawned
+    prover worker (prewarmed after the parent's disk key cache, under
+    ``graft`` with the point cache on the card too); ``on_proved``
+    installs each landed proof.  ``PLANES["ticks"]`` ticks paced at
+    ``interval_s``, then a drain.  Each wrapper's launches: the parent's
+    converges (set to 0 before the first tick, read after the drain)
+    and the worker's graft kernels (set to 0 before its prewarm)."""
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.obs import TRACER
+    from protocol_tpu_torch.obs.metrics import PROOF_LAG_EPOCHS
+    from protocol_tpu_torch.prover import ProvingPlane, ProvingPlaneConfig
+
+    m = Manager(ManagerConfig(zk_backend=zk_backend, **plonk_ctx["config"]), prover=plonk_ctx["prover"])
+    rejected = [v.reason for v in m.add_attestations_bulk(plonk_ctx["atts"]) if not v.accepted]
+    check(not rejected, f"planes: attestations rejected: {rejected}")
+    landed = {}
+
+    def on_proved(result):
+        landed[result.epoch] = dict(t=time.perf_counter(), result=result)
+        m.install_proof(result.epoch, result.pub_ins, result.proof)
+
+    cfg = m.config
+    params = (cfg.num_neighbours, cfg.num_iter, cfg.initial_score, cfg.scale)
+    job0 = m.build_proof_job(Epoch(0))
+    plane = ProvingPlane(ProvingPlaneConfig(workers=1, queue_depth=1,
+                                            prove_timeout_s=PLANES["prove_timeout_s"]),
+                         on_proved=on_proved).start()
+    procs = []
+    try:
+        _, executor = plane.pool._snapshot()
+        t0 = time.perf_counter()
+        pid = executor.submit(reset_worker_launches).result(timeout=300)
+        spawn_s = time.perf_counter() - t0
+        procs = pool_processes(plane.pool)
+        generation = plane.pool.generation
+        t0 = time.perf_counter()
+        plane.prewarm(params, cfg.prover, cfg.srs_path, zk_backend=zk_backend, zk_device=job0.zk_device)
+        prewarm_s = time.perf_counter() - t0
+        for w in wrappers:
+            w.launches = 0
+        ticks = []
+        t_loop = time.perf_counter()
+        for k in range(PLANES["ticks"]):
+            wait = t_loop + k * PLANES["interval_s"] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            t0 = time.perf_counter()
+            with TRACER.epoch(k):
+                result = m.converge_epoch(Epoch(k), **NODE_KW)
+                t1 = time.perf_counter()
+                with TRACER.span("prove_enqueue"):
+                    status = plane.submit(m.build_proof_job(Epoch(k)))
+            t2 = time.perf_counter()
+            ticks.append(dict(epoch=k, started_s=t0 - t_loop, tick_s=t2 - t0, converge_s=t1 - t0,
+                              enqueue_s=t2 - t1, iterations=result.iterations,
+                              state_at_submit=status.state, lag_epochs=PROOF_LAG_EPOCHS.value()))
+        loop_end = t_loop + PLANES["ticks"] * PLANES["interval_s"]
+        time.sleep(max(0.0, loop_end - time.perf_counter()))
+        t0 = time.perf_counter()
+        drained = plane.drain(PLANES["prove_timeout_s"])
+        drain_s = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        worker_pid, worker_launches = executor.submit(read_worker_launches).result(timeout=60)
+        stats = plane.stats()
+        restarts = plane.pool.generation - generation
+        lag_epochs_after = PROOF_LAG_EPOCHS.value()
+        lag_s = {e: plane.status(e).lag_seconds for e in range(PLANES["ticks"])}
+    finally:
+        plane.close()
+        join_processes(procs)
+    check(drained, f"planes {zk_backend}: the proving plane did not drain")
+    check(pid == worker_pid and restarts == 0,
+          f"planes {zk_backend}: the prover worker was replaced ({pid} -> {worker_pid}, {restarts} restarts)")
+    # Proving time inside the tick loop's window, from each landed
+    # proof's prove seconds ending when it landed.
+    proving, hidden = 0.0, 0.0
+    for rec in landed.values():
+        end, seconds = rec["t"], rec["result"].prove_seconds
+        proving += seconds
+        hidden += max(0.0, min(end, loop_end) - max(end - seconds, t_loop))
+    return dict(
+        manager=m, landed=landed, stats=stats, ticks=ticks, spawn_s=spawn_s, prewarm_s=prewarm_s,
+        drain_s=drain_s, loop_s=loop_end - t_loop, lag_epochs_after_drain=lag_epochs_after,
+        lag_s=lag_s, launches=launches, worker_launches=worker_launches, worker_pid=worker_pid,
+        zk_device=job0.zk_device, overlap_share=hidden / proving if proving else None,
+        prove_s={e: landed[e]["result"].prove_seconds for e in sorted(landed)},
+        tick_traces={e: TRACER.get_trace(e) for e in range(PLANES["ticks"])},
+    )
+
+
+def planes_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
+    """The admission plane and the async proving plane on the card.
+
+    Admission: ``admission_stream`` over the node cell's 64-member group
+    through ``IngestPlane`` in front of a ``cuda-windowed`` manager on
+    the card with 0 and with 2 spawned verify workers, and on the CPU
+    with 0: every verdict and reason equal across the three and to the
+    direct ``Manager.add_attestations_bulk`` wherever the plane's own
+    gates (dedup, nonce, rate, queue) let the item reach the checks the
+    direct path makes; sigs/s for each pool; an epoch converged from
+    what each plane admitted, the card runs bit-equal, the CPU run
+    within L1 1e-6 at the same iterations.
+
+    Async proving: ``run_async`` under ``native`` and under ``graft``
+    (the worker proves on the card, in its own CUDA context): no job
+    failed, every landed proof equal to the sync prove's bytes for its
+    statement and verifying, the worker's grafted span tree holding
+    ``snark`` with its phases (graft's msm and ntt rows under graft),
+    the graft worker's kernels launched, the parent's converges on the
+    backend's budget.  Returns each wrapper's launches on the phase's
+    path: the converges in this process, the graft kernels in the
+    worker."""
+    import shutil
+
+    import numpy as np
+
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.zk.proof import CACHE_ENV
+
+    t_phase = time.perf_counter()
+    plane_only = {"duplicate", "stale-nonce", "rate-limited", "spam-score", "queue-full"}
+
+    # -- admission ------------------------------------------------------------
+    t0 = time.perf_counter()
+    fixed_set, atts, _ = node_group(PLANES["group"], NODE["seed"])
+    pre, post = admission_stream(fixed_set, atts)
+    stream_build_s = time.perf_counter() - t0
+    base = dict(backend="cuda-windowed", prover="commitment", check_circuit=False,
+                fixed_set=list(fixed_set), num_neighbours=len(fixed_set))
+    runs = {}
+    for workers in PLANES["verify_workers"]:
+        runs[f"card/{workers}"] = run_admission(ManagerConfig(**base), pre, post, workers,
+                                                PLANES["rounds"], trust_wrappers)
+    runs["cpu/0"] = run_admission(ManagerConfig(device="cpu", **base), pre, post, 0,
+                                  PLANES["rounds"], trust_wrappers)
+    direct = Manager(ManagerConfig(**base))
+    t0 = time.perf_counter()
+    direct_verdicts = [(v.accepted, v.reason) for v in direct.add_attestations_bulk(
+        [a for a, _ in pre + post])]
+    direct_s = time.perf_counter() - t0
+    split = verify_split(fixed_set, atts)
+    want = ([(True, None)] * PLANES["group"] + [(False, "queue-full")] * 4 + [(True, None)] * 4
+            + [(False, "duplicate"), (False, "stale-nonce"), (False, "bad-signature"),
+               (False, "group-mismatch")])
+    card0, card2, cpu = runs["card/0"], runs[f"card/{PLANES['verify_workers'][-1]}"], runs["cpu/0"]
+    compared = [(p, d) for p, d in zip(card0["verdicts"], direct_verdicts) if p[1] not in plane_only]
+    budget = KERNEL_INVARIANTS["cuda-windowed"]
+    admission = dict(
+        stream_items=len(pre) + len(post), stream_build_s=stream_build_s,
+        verdicts_equal_across_runs=all(r["verdicts"] == card0["verdicts"] for r in runs.values()),
+        verdicts_as_designed=card0["verdicts"] == want,
+        direct_compared=len(compared), direct_equal=all(p == d for p, d in compared),
+        direct_items_per_s=len(pre + post) / direct_s, host_ms_per_item=split,
+        reasons={r: sum(1 for _, why in card0["verdicts"] if why == r)
+                 for r in sorted({why for _, why in card0["verdicts"]}, key=str)},
+        caches_equal=all(r["cache"] == card0["cache"] for r in runs.values()),
+        converge_bit_equal=bool(np.array_equal(card0["scores"], card2["scores"])),
+        converge_l1_vs_cpu=float(np.abs(card0["scores"] - cpu["scores"]).sum()),
+        iterations={k: r["iterations"] for k, r in runs.items()},
+        launches_match_budget={
+            k: r["launches"] == {**{w.__name__: 0 for w in trust_wrappers},
+                                 **budget.expected_launches(r["iterations"])}
+            for k, r in runs.items() if k.startswith("card")
+        },
+        runs={k: {f: r[f] for f in ("stream_s", "sigs", "rounds_s", "sigs_per_s", "worker_processes",
+                                    "stats", "iterations", "launches")} for k, r in runs.items()},
+    )
+    check(admission["verdicts_equal_across_runs"],
+          f"planes: verdicts differ between runs: {[(k, r['verdicts'][-8:]) for k, r in runs.items()]}")
+    check(admission["verdicts_as_designed"], f"planes: verdicts {card0['verdicts'][-12:]}, want {want[-12:]}")
+    check(admission["direct_equal"] and len(compared) == len(want) - 6,
+          f"planes: the plane and the direct path disagree: {compared}")
+    check(admission["caches_equal"], "planes: the admitted caches differ between runs")
+    check(admission["converge_bit_equal"], "planes: the card converges after 0 and 2 workers differ")
+    check(card0["iterations"] == cpu["iterations"] and admission["converge_l1_vs_cpu"] <= 1e-6,
+          f"planes: card vs CPU converge {admission['iterations']}, L1 {admission['converge_l1_vs_cpu']}")
+    check(all(admission["launches_match_budget"].values()),
+          f"planes: admission converges off budget: {admission['runs']}")
+    # The executor spawns its processes as the load asks, up to the pool's size.
+    check(1 <= card2["worker_processes"] <= PLANES["verify_workers"][-1],
+          f"planes: {card2['worker_processes']} verify workers ran")
+    emit("planes_admission", nvidia_smi=smi, **admission)
+
+    # -- async proving --------------------------------------------------------
+    # The workers load the key the plonk phase's cold keygen wrote.
+    os.environ[CACHE_ENV] = str(plonk_ctx["keys"])
+    prover = plonk_ctx["prover"]
+    sync_ms = Manager(ManagerConfig(**plonk_ctx["config"]), prover=prover)
+    sync_ms.add_attestations_bulk(plonk_ctx["atts"])
+    sync = {PLONK["epochs"] - 1: plonk_ctx["card"]["proof"]}
+    sync_tick_s = plonk_ctx["card"]["epochs"][-1]["seconds"] + plonk_ctx["card"]["circuit_check_s"] \
+        + plonk_ctx["card"]["snark_s"]
+    graft_names = [w.__name__ for w in graft_wrappers()]
+    totals = {w.__name__: 0 for w in trust_wrappers}
+    totals.update({name: 0 for name in graft_names})
+    proving = {}
+    for zk_backend in PLANES["zk_backends"]:
+        r = run_async(plonk_ctx, zk_backend, trust_wrappers, check)
+        stats, ticks = r["stats"], r["ticks"]
+        states = {e: s["state"] for e, s in stats["states"].items()}
+        check(stats["failed"] == 0 and all(s in ("proved", "superseded") for s in states.values()),
+              f"planes {zk_backend}: a proof job failed or crashed: {stats['states']}")
+        check(states.get(PLANES["ticks"] - 1) == "proved",
+              f"planes {zk_backend}: the newest epoch was not proved: {states}")
+        equal, verified, spans = {}, {}, {}
+        for e, rec in sorted(r["landed"].items()):
+            res = rec["result"]
+            if e not in sync:
+                sync_ms.calculate_proofs(Epoch(e))
+                sync[e] = sync_ms.get_proof(Epoch(e)).proof
+            equal[e] = res.proof == sync[e]
+            verified[e] = prover.verify(list(res.pub_ins), res.proof)
+            trace = r["tick_traces"][e] or {}
+            prove = next((c for c in trace.get("children", ()) if c["name"] == "prove"), {})
+            snark = next((c for c in prove.get("children", ()) if c["name"] == "snark"), {})
+            spans[e] = {c["name"]: (c.get("attrs") or {}).get("engine")
+                        for c in snark.get("children", ())}
+        check(all(equal.values()) and all(verified.values()),
+              f"planes {zk_backend}: landed proofs equal the sync bytes {equal}, verify {verified}")
+        check(all({"msm", "ntt"} <= set(s) for s in spans.values()),
+              f"planes {zk_backend}: grafted snark spans lack their phases: {spans}")
+        if zk_backend == "graft":
+            check(all(s["msm"] == "graft" and s["ntt"] == "graft" for s in spans.values()),
+                  f"planes graft: the worker's msm/ntt rows are not graft's: {spans}")
+            check(all(v > 0 for v in r["worker_launches"].values()),
+                  f"planes graft: a kernel did not launch in the worker: {r['worker_launches']}")
+            check(r["zk_device"] is not None and r["zk_device"].startswith("cuda"),
+                  f"planes graft: the job's device is {r['zk_device']}")
+        else:
+            check(not any(r["worker_launches"].values()),
+                  f"planes native: the worker launched graft kernels: {r['worker_launches']}")
+        iterations = sum(t["iterations"] for t in ticks)
+        want_launches = {w.__name__: 0 for w in trust_wrappers}
+        want_launches.update(budget.expected_launches(iterations))
+        check(r["launches"] == want_launches,
+              f"planes {zk_backend}: tick converges launched {r['launches']}, budget {want_launches}")
+        for name, k in r["launches"].items():
+            totals[name] += k
+        for name, k in r["worker_launches"].items():
+            totals[name] += k
+        prove_s = r["prove_s"]
+        first = min(prove_s) if prove_s else None
+        proving[zk_backend] = dict(
+            zk_device=r["zk_device"], worker_spawn_s=r["spawn_s"], prewarm_s=r["prewarm_s"],
+            ticks=ticks, tick_s=[t["tick_s"] for t in ticks], sync_tick_s=sync_tick_s,
+            loop_s=r["loop_s"], drain_s=r["drain_s"],
+            landed=sorted(r["landed"]), completed=stats["completed"],
+            superseded=stats["superseded"], failed=stats["failed"],
+            states=states, lag_epochs_at_submit=[t["lag_epochs"] for t in ticks],
+            lag_epochs_after_drain=r["lag_epochs_after_drain"], lag_s=r["lag_s"],
+            prove_s=prove_s, first_prove_s=prove_s.get(first),
+            later_prove_s=[s for e, s in prove_s.items() if e != first],
+            overlap_share=r["overlap_share"], proofs_equal_sync=equal, proofs_verify=verified,
+            grafted_snark_phases=spans, converge_launches=r["launches"],
+            worker_launches=r["worker_launches"],
+        )
+        emit("planes_proving", zk_backend=zk_backend, nvidia_smi=smi, **proving[zk_backend])
+    os.environ.pop(CACHE_ENV, None)
+    shutil.rmtree(plonk_ctx["keys"].parent, ignore_errors=True)
+    emit("planes", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         admission_sigs_per_s={k: r["sigs_per_s"] for k, r in runs.items()},
+         overlap_share={b: p["overlap_share"] for b, p in proving.items()},
+         launches=totals)
+    return totals
 
 
 SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
@@ -2143,6 +2600,9 @@ def main() -> None:
     # -- 11. graft: the prover's kernels K10-K13, the epoch proved on them --
     kernels.extend(graft_phase(plonk_ctx, check, emit, smi))
 
+    # -- 12. planes: admission through verify workers, async proving -------
+    planes_launches = planes_phase(plonk_ctx, wrappers, check, emit, smi)
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -2189,6 +2649,7 @@ def main() -> None:
         wrapper = entry.get("wrapper", entry["name"])
         entry["node_launches"] = {b: node_launches[b].get(wrapper, 0) for b in NODE["backends"]}
         entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
+        entry["planes_launches"] = planes_launches.get(wrapper, 0)
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()
         }

@@ -539,6 +539,10 @@ class Manager:
             check_circuit=cfg.check_circuit,
             graph_fingerprint=fingerprint,
             zk_backend=cfg.zk_backend,
+            # The node's device, for a graft prove on another thread or
+            # in a spawned worker (the knob is thread-local); the same
+            # device calculate_proofs hands the knob.  Not in job_seed.
+            zk_device=str(self.device) if self.device is not None else cfg.device,
         )
 
     def install_proof(self, epoch_number: int, pub_ins, proof_bytes: bytes) -> None:

@@ -2,7 +2,7 @@
 lineage, the epoch timeline and runtime invariant watchers.
 
 The port's copy of the reference's instrumentation layer, as far as the
-single-device node uses it:
+single-device node and its two planes use it:
 
 - :mod:`~protocol_tpu_torch.obs.trace` — hierarchical spans collected
   into a per-epoch span tree (``TRACER``);
@@ -18,12 +18,15 @@ single-device node uses it:
 - :mod:`~protocol_tpu_torch.obs.watchers` — the kernel-build watch
   around each converge (``RECOMPILES``), per-span device-memory
   watermarks from ``torch.cuda.memory_stats`` and the score-drift
-  monitor (``DRIFT``).
+  monitor (``DRIFT``);
+- :mod:`~protocol_tpu_torch.obs.export` — the Prometheus and JSON
+  exporters and the ``torch.profiler`` session;
+- :mod:`~protocol_tpu_torch.obs.fleet` — cross-process aggregation:
+  the registry snapshots that the verify and prover workers ship back
+  (``FLEET``), the fleet directory exchange and the merged exposition.
 
-The exporters (``export``: Prometheus text, the profiler session),
-cross-process aggregation (``fleet``), the SLO engine (``slo``) and the
-pod trace stitcher (``podtrace``) serve the node's HTTP server and the
-pod, and are not ported yet.
+The SLO engine (``slo``) and the pod trace stitcher (``podtrace``) serve
+the node's HTTP server and the pod, and are not ported yet.
 
 Doctrine: spans, metrics and journal writes live at host boundaries
 only; the per-iteration residual trajectory is written on the device

@@ -1,25 +1,67 @@
-"""Proof jobs: the flat unit of work one epoch proof needs.
+"""Proof jobs: the flat, picklable unit of work the proving plane moves
+across the process boundary.
 
-A :class:`ProofJob` carries everything one epoch proof needs as plain
-integers and tuples — signature components, public-key coordinates,
-score rows, the protocol parameters — so two jobs with equal payloads
-are *the same statement*.
+The port of ``protocol_tpu/prover/jobs.py``.  A :class:`ProofJob`
+carries everything one epoch proof needs as plain integers and tuples —
+signature components, public-key coordinates, score rows, the protocol
+parameters — so a spawned prover worker imports only the port's
+zk/crypto tree (no jax, nothing of ``protocol_tpu``, no node state, no
+open-graph arrays) and two jobs with equal payloads are *the same
+statement*.
 
-Determinism: :func:`job_seed` derives the proof's blinding seed from
-the job payload itself (the RFC-6979 stance: deterministic nonces bound
-to the witness), so proving the same statement twice gives the same
-bytes.  :func:`prover_for` keeps one prover a process per (params,
-prover kind, SRS), so repeated proofs skip SRS load and keygen.  The
-proving plane that moves jobs across a process boundary (``prove_job``,
-which also needs the fleet registry's snapshot) is not ported yet
-(ROADMAP A5c (ii)).
+Determinism: PLONK blinding is normally sampled from the system RNG,
+which would make the pooled proof differ byte-for-byte from an
+in-process proof of the same statement.  :func:`job_seed` derives the
+blinding seed from the job payload itself (the RFC-6979 stance:
+deterministic nonces bound to the witness), so in-process and pooled
+proving are bit-identical — to each other and to the reference's — and
+re-proving a superseded epoch is idempotent.
+
+:func:`prove_job` is the single prove entry both paths share: the
+worker processes call it through :mod:`~protocol_tpu_torch.prover.workers`,
+and ``workers=0`` pools call it inline.  It rebuilds the epoch
+statement (``power_iterate`` → circuit check → SNARK) under a local
+span tree and returns the serialized spans with the proof, so the
+prover-internal attribution (msm/ntt/gate_eval/... from either
+engine's phase table) survives the process boundary and can be grafted
+back into the epoch's stored trace.
+
+One field is the port's own: ``zk_device``.  The graft engine's device
+is thread-local in the port (``zk.graft.use_zk_backend``), so a job
+proved on a dispatcher thread or in a spawned process would lose the
+node's device; the job carries it instead (``None`` = the card, which
+raises where there is none; never a fallback to the CPU).
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import time
 from dataclasses import dataclass
 from typing import Any
+
+#: Chaos hooks for crash-recovery tests and the prover-storm bench's
+#: crash mix (the ingest plane's ``CRASH_MARKER`` analog):
+#: ``CRASH_MARKER`` hard-kills the worker on every attempt;
+#: ``crash_once_marker(path)`` kills the first attempt only (the retry
+#: observes the flag file and proceeds) — the "worker killed mid-MSM →
+#: retry → proved" scenario.
+CRASH_MARKER = "__crash-prover__"
+_CRASH_ONCE_PREFIX = "__crash-prover-once__:"
+
+#: Proof lifecycle states (the ``GET /proof/<epoch>`` surface).
+QUEUED = "queued"
+PROVING = "proving"
+PROVED = "proved"
+FAILED = "failed"
+SUPERSEDED = "superseded"
+
+
+def crash_once_marker(flag_path: str) -> str:
+    """Chaos spec that kills the worker once: the first attempt creates
+    ``flag_path`` and dies; the retry sees it and proves normally."""
+    return _CRASH_ONCE_PREFIX + flag_path
 
 
 @dataclass(frozen=True)
@@ -45,12 +87,12 @@ class ProofJob:
     #: bookkeeping only — the fixed-set statement is fully determined
     #: by the payload above).
     graph_fingerprint: int = 0
-    #: Chaos hook of the proving plane's workers (tests/bench).
+    #: Chaos hook (tests/bench): CRASH_MARKER or crash_once_marker().
     chaos: str | None = None
-    #: Proving-kernel backend of the PLONK prover: ``native`` or
-    #: ``graft`` (the card kernels, on the device the node hands the
-    #: knob).  Execution selection only — both produce byte-identical proofs, so it is
-    #: excluded from :func:`job_seed` like the other bookkeeping
+    #: Proving-kernel backend (``zk.graft.VALID_BACKENDS``): ``native``
+    #: (the host runtime) or ``graft`` (the hand-written card kernels).
+    #: Execution selection only — both produce byte-identical proofs, so
+    #: it is excluded from :func:`job_seed` like the other bookkeeping
     #: fields, and pooled proofs survive a backend switch unchanged.
     zk_backend: str = "native"
     #: Lineage IDs (obs/lineage.py) whose end-to-end freshness this
@@ -59,6 +101,13 @@ class ProofJob:
     #: unsampled path.  Bookkeeping only: excluded from
     #: :func:`job_seed`, so sampling never perturbs proof bytes.
     lineage: tuple[int, ...] = ()
+    #: The device the graft engine proves on (a ``torch.device`` string:
+    #: ``"cuda:0"``, ``"cpu"``; ``None`` = the card, raising where there
+    #: is none).  Filled by ``Manager.build_proof_job`` from the node's
+    #: device; ignored under ``native``.  Bookkeeping like ``zk_backend``:
+    #: excluded from :func:`job_seed`, so the proof bytes are the
+    #: reference's.
+    zk_device: str | None = None
 
 
 @dataclass
@@ -107,9 +156,31 @@ def job_fingerprint(job: ProofJob) -> str:
     return job_seed(job).hex()[:16]
 
 
-# Per-process prover cache: one Prover instance per (params, prover
-# kind, srs_path), built on first use, so repeated jobs skip SRS load
-# and keygen entirely.
+def _run_chaos(chaos: str | None) -> None:
+    if chaos is None:
+        return
+    if chaos == CRASH_MARKER:
+        os._exit(1)
+    if chaos.startswith(_CRASH_ONCE_PREFIX):
+        flag = chaos[len(_CRASH_ONCE_PREFIX) :]
+        if not os.path.exists(flag):
+            try:
+                with open(flag, "x"):
+                    pass
+            except FileExistsError:
+                return
+            os._exit(1)
+    if chaos.startswith("sleep:"):
+        time.sleep(float(chaos.split(":", 1)[1]))
+
+
+# Per-process prover cache (the SRS/proving-key caching satellite): one
+# Prover instance per (params, prover kind, srs_path), built on first
+# use — or ahead of time by the pool prewarm — so repeated jobs skip
+# SRS load and keygen entirely.  Worker processes are single-threaded
+# job loops (one dispatcher feeds each worker one job at a time), so a
+# plain dict needs no lock; the in-process path (workers=0) calls
+# prove_job from exactly one dispatcher thread per pool.
 _PROVERS: dict[tuple, Any] = {}
 
 
@@ -139,3 +210,91 @@ def prover_for(
             inst = PoseidonCommitmentProver()
         _PROVERS[key] = inst
     return inst
+
+
+def prove_job(job: ProofJob, *, verify: bool = True) -> ProofResult:
+    """Prove one epoch statement (worker-side, or inline for
+    ``workers=0``): rebuild the attestations from the flat payload,
+    run ``power_iterate`` → circuit check → SNARK under a local span
+    tree, and return the proof with its serialized attribution."""
+    _run_chaos(job.chaos)
+
+    from ..crypto.babyjubjub import Point
+    from ..crypto.eddsa import PublicKey, Signature
+    from ..node.attestation import Attestation
+    from ..obs import TRACER
+    from ..trust.native import power_iterate
+
+    num_neighbours, num_iter, initial_score, scale = job.params
+    pks = [PublicKey(Point(x, y)) for x, y in job.pks]
+    atts = [
+        Attestation(
+            sig=Signature.new(rx, ry, s),
+            pk=pk,
+            neighbours=list(pks),
+            scores=list(row),
+        )
+        for (rx, ry, s), pk, row in zip(job.sigs, pks, job.ops)
+    ]
+    ops = [list(row) for row in job.ops]
+    prover = prover_for(job.params, job.prover, job.srs_path)
+
+    from ..zk.graft import use_zk_backend
+
+    t0 = time.perf_counter()
+    with TRACER.span("prove", epoch=job.epoch, pooled=True) as root:
+        with TRACER.span("power_iterate"):
+            pub_ins = power_iterate(
+                [initial_score] * num_neighbours, ops, num_iter, scale
+            )
+        witness: dict[str, Any] = {"ops": ops, "attestations": atts}
+        if job.check_circuit:
+            from ..zk.circuit import prove_epoch_statement
+
+            with TRACER.span("circuit_check"):
+                witness["cs"] = prove_epoch_statement(
+                    atts,
+                    pub_ins,
+                    num_neighbours=num_neighbours,
+                    num_iter=num_iter,
+                    initial_score=initial_score,
+                    scale=scale,
+                )
+        with TRACER.span("snark"), use_zk_backend(job.zk_backend, job.zk_device):
+            proof_bytes = prover.prove(pub_ins, witness, seed=job_seed(job))
+    if verify:
+        assert prover.verify(pub_ins, proof_bytes), (
+            f"epoch {job.epoch}: freshly produced proof failed verification"
+        )
+    from ..obs.fleet import registry_snapshot
+
+    # PROVE_SECONDS is observed by the plane when the result lands
+    # (once, whichever process proved); the worker's own registry ships
+    # its span-fed phase histograms in the snapshot below.
+    prove_seconds = time.perf_counter() - t0
+    return ProofResult(
+        epoch=job.epoch,
+        pub_ins=tuple(pub_ins),
+        proof=proof_bytes,
+        spans=root.to_dict(),
+        prove_seconds=prove_seconds,
+        lineage=tuple(job.lineage),
+        metrics=registry_snapshot(source=f"prover-{os.getpid()}"),
+    )
+
+
+__all__ = [
+    "CRASH_MARKER",
+    "FAILED",
+    "PROVED",
+    "PROVING",
+    "QUEUED",
+    "SUPERSEDED",
+    "ProofJob",
+    "ProofResult",
+    "crash_once_marker",
+    "job_fingerprint",
+    "job_seed",
+    "prove_job",
+    "prover_for",
+]

@@ -9,6 +9,7 @@ exactly, not by prefix.
 
 import ast
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -66,7 +67,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
     """The import check above covers every subpackage the node brought,
     not only the kernels' modules."""
     mods = set(port_modules())
-    for sub in ("analysis", "chaos", "crypto", "node", "obs", "parallel", "prover", "utils", "zk"):
+    for sub in ("analysis", "chaos", "crypto", "ingest", "node", "obs", "parallel", "prover",
+                "utils", "zk"):
         assert f"protocol_tpu_torch.{sub}" in mods, sub
     for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
                 "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs",
@@ -74,7 +76,9 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "crypto.keccak", "zk.rns", "zk.bn254", "zk.fields", "zk.cs", "zk.gadgets",
                 "zk.chips", "zk.eddsa", "zk.circuit", "zk.transcript", "zk.native", "zk.graft",
                 "zk.graft.field", "zk.graft.ntt", "zk.graft.pippenger", "ops.segments",
-                "zk.kzg", "zk.plonk"):
+                "zk.kzg", "zk.plonk", "obs.export", "obs.fleet", "ingest.dedup",
+                "ingest.ratelimit", "ingest.workers", "ingest.plane", "prover.workers",
+                "prover.plane"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -86,6 +90,42 @@ def test_a_spawned_rank_loads_neither_jax_nor_the_reference():
 
     assert "jax" in sys.modules
     assert run_ranks(2, loaded_modules, backend="gloo", device="cpu", timeout_s=60) == [[], []]
+
+
+def test_spawned_plane_workers_load_neither_jax_nor_the_reference():
+    """A verify worker and a prover worker, spawned from this process
+    (which has jax loaded), each after a real batch or prove, hold
+    neither ``jax``, ``jaxlib`` nor ``protocol_tpu`` in ``sys.modules``:
+    their bootstrap and their work import only the port."""
+    from protocol_tpu_torch.crypto import group_pks_hash
+    from protocol_tpu_torch.ingest.workers import VerifyPool
+    from protocol_tpu_torch.node.bootstrap import FIXED_SET, keyset_from_raw
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.parallel.dryrun import loaded_modules
+    from protocol_tpu_torch.prover.workers import ProverPool
+
+    import protocol_tpu.crypto  # noqa: F401 - the parent holds the reference too
+
+    assert "jax" in sys.modules and "protocol_tpu" in sys.modules
+    _, pks = keyset_from_raw(FIXED_SET)
+    manager = Manager(ManagerConfig(prover="commitment", check_circuit=False))
+    manager.generate_initial_attestations()
+    att = next(iter(manager.attestations.values()))
+    item = (att.sig.big_r.x, att.sig.big_r.y, att.sig.s, att.pk.point.x, att.pk.point.y,
+            tuple(att.scores))
+    verify, prove = VerifyPool(workers=1), ProverPool(workers=1)
+    try:
+        assert verify.verify(group_pks_hash(pks), [item]) == [True]
+        result = prove.prove(manager.build_proof_job(Epoch(1)))
+        assert result.metrics["pid"] != os.getpid()
+        for pool in (verify, prove):
+            _, executor = pool._snapshot()
+            loaded = executor.submit(loaded_modules, None).result(timeout=120)
+            assert loaded == [], loaded
+    finally:
+        verify.close()
+        prove.close()
 
 
 def test_importing_the_node_builds_no_library():
