@@ -78,7 +78,20 @@ under ``native`` and under ``graft``, where the worker launches K10-K13
 in its own CUDA context — every landed proof equal to the sync proof's
 bytes and verifying, no job failed, with the ticks' wall seconds, proof
 lag, the worker's prove seconds and the share of them inside the tick
-loop.
+loop.  Last the node server (``server``): the reference's default node
+(``data/protocol-config.json``) on ``cuda-windowed`` with the async
+proving plane, booted in this process with ``Node.start`` on a free
+local port and its chain events from a fixture of the plonk cell's
+attestations: the boot order (the socket answers ``recovering`` before
+the loops start), ``POST /attestation`` verdicts, 3 ticks of its
+wall-clock epoch loop (none failed or dropped, K1 and K5-K8 launched for
+exactly the ticks' iterations, a ``torch.profiler`` trace each), every
+``GET`` route's status and latency, each landed proof verifying and the
+last equal to a CPU manager's prove of the same attestations, the
+converges equal to the CPU's; then ``python -m
+protocol_tpu_torch.node.server`` in a subprocess on the same checkpoint
+directory, serving the checkpointed proof and exiting on SIGTERM with
+its flight dump.
 
 Every phase prints its JSON lines.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
@@ -88,7 +101,8 @@ for K9, the probes phase for
 K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on the node's card converges by backend
 (``node_launches``), on the PLONK node's card converges
 (``plonk_launches``), on the planes phase's converges and in its graft
-worker (``planes_launches``), on each rank of the sharded headline
+worker (``planes_launches``), on the server's ticks
+(``server_launches``), on each rank of the sharded headline
 converges by backend (``sharded_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
@@ -99,6 +113,7 @@ or of the ``protocol_tpu`` reference package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import pathlib
@@ -290,6 +305,23 @@ def run_node(fixed_set, atts, reattestation, backend, device, workdir, wrappers)
                 recovery=report, restored=fresh.get_proof(last).proof == proof.proof)
 
 
+#: The CUDA functions the converge kernels' wrappers launch, by name in
+#: a profiler trace, with the wrapper of each (K7's wrapper runs two).
+PROFILED = {
+    "gather_window_kernel": "gather_windowed", "prefix_rows_kernel": "prefix_bridge",
+    "permute4_kernel": "prefix_bridge", "ds_cumsum_rows_kernel": "ds_cumsum_axis1",
+    "compensated_scan_kernel": "block_total_scan", "rowsum_tail_kernel": "rowsum_tail",
+    "gather_ds_cumsum_kernel": "gather_ds_cumsum",
+}
+
+
+def traced_budget(budget, iterations) -> dict:
+    """Each profiled function's launches that ``iterations`` steps of a
+    backend with ``budget`` (``analysis/budget.py``) make."""
+    return {k: budget.launches_per_step.get(w, 0) * iterations
+            for k, w in PROFILED.items() if budget.launches_per_step.get(w, 0)}
+
+
 def node_phase(wrappers, check, emit, smi) -> dict:
     """The single-device node on the card: for the bootstrap group of 5
     and a seeded group of 64, on ``cuda-windowed`` and on ``cuda-csr``,
@@ -311,12 +343,6 @@ def node_phase(wrappers, check, emit, smi) -> dict:
     from protocol_tpu_torch.crypto import native as cnative
     from protocol_tpu_torch.trust.backend import get_backend
 
-    profiled = {
-        "gather_window_kernel": "gather_windowed", "prefix_rows_kernel": "prefix_bridge",
-        "permute4_kernel": "prefix_bridge", "ds_cumsum_rows_kernel": "ds_cumsum_axis1",
-        "compensated_scan_kernel": "block_total_scan", "rowsum_tail_kernel": "rowsum_tail",
-        "gather_ds_cumsum_kernel": "gather_ds_cumsum",
-    }
     check(cnative.available(), "the crypto runtime (native/protocol_native.cpp) did not build")
     workdir = HERE / "build" / "chip_smoke_node"
 
@@ -342,7 +368,7 @@ def node_phase(wrappers, check, emit, smi) -> dict:
                     traced, prof = {"not measured": repr(exc)}, None
         if prof is not None:
             for e in device_events(prof):
-                for kernel in profiled:
+                for kernel in PROFILED:
                     if kernel in e.name:
                         traced[kernel] = traced.get(kernel, 0) + 1
         return card, traced
@@ -358,10 +384,7 @@ def node_phase(wrappers, check, emit, smi) -> dict:
             budget = KERNEL_INVARIANTS[backend]
             card, traced = traced_node(fixed_set, atts, reattestation, backend)
             iterations = sum(c["iterations"] for c in card["epochs"])
-            want_traced = {
-                k: budget.launches_per_step.get(w, 0) * iterations
-                for k, w in profiled.items() if budget.launches_per_step.get(w, 0)
-            }
+            want_traced = traced_budget(budget, iterations)
             traced_ok = None if "not measured" in traced else traced == want_traced
             cpu = run_node(fixed_set, atts, reattestation, backend, "cpu", workdir, wrappers)
             key = f"{n}/{backend}"
@@ -554,8 +577,8 @@ def plonk_phase(wrappers, check, emit, smi) -> tuple[dict, dict]:
     total = sum(card["pub_ins"]) % field.MODULUS
     check(total == 5 * 1000, f"plonk: public scores sum to {total} in the field, not 5000")
     emit("plonk", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
-    # The key cache stays for the planes phase's prover workers, which
-    # remove it.
+    # The key cache stays for the planes phase's prover workers and the
+    # server phase's node, which removes it.
     return totals, dict(prover=prover, atts=atts, config=config, card=card, trust_wrappers=wrappers,
                         keys=keys)
 
@@ -1144,6 +1167,11 @@ def run_admission(config, pre, post, workers, rounds, wrappers):
         stream_s = time.perf_counter() - t0
         verdicts = [(f.result().accepted, f.result().reason) for f in futures]
         cache = sorted((h, tuple(a.scores)) for h, a in manager.attestations.items())
+        # Verify workers apply their batches as they finish, so the cache's
+        # insertion order, which numbers the graph's peers, varies between
+        # runs; the converge takes the admitted cache in sender-hash order.
+        apply_order = list(manager.attestations)
+        manager.attestations = dict(sorted(manager.attestations.items()))
         for w in wrappers:
             w.launches = 0
         result = manager.converge_epoch(Epoch(0), **NODE_KW)
@@ -1167,41 +1195,49 @@ def run_admission(config, pre, post, workers, rounds, wrappers):
     return dict(verdicts=verdicts, stream_s=stream_s, sigs=sigs, rounds_s=rounds_s,
                 sigs_per_s=sigs / rounds_s if sigs else None, worker_processes=len(procs),
                 stats=stats, iterations=result.iterations, scores=result.scores,
-                launches=launches, cache=cache)
+                launches=launches, cache=cache, apply_order=apply_order)
 
 
 def run_async(plonk_ctx, zk_backend, wrappers, check):
-    """The plonk cell's default node ticking the way the reference's
-    server does in async mode (``protocol_tpu/node/server.py:596-652``):
-    each tick converges on the card under the epoch's trace root, then
-    enqueues ``build_proof_job`` on a ``ProvingPlane`` with one spawned
-    prover worker (prewarmed after the parent's disk key cache, under
-    ``graft`` with the point cache on the card too); ``on_proved``
-    installs each landed proof.  ``PLANES["ticks"]`` ticks paced at
-    ``interval_s``, then a drain.  Each wrapper's launches: the parent's
-    converges (set to 0 before the first tick, read after the drain)
-    and the worker's graft kernels (set to 0 before its prewarm)."""
+    """The plonk cell's default node ticking in async mode through the
+    server's own tick (``Node._epoch_tick``): each tick converges on the
+    card under the epoch's trace root, then enqueues ``build_proof_job``
+    on a ``ProvingPlane`` with one spawned prover worker (prewarmed after
+    the parent's disk key cache, under ``graft`` with the point cache on
+    the card too), whose ``on_proved`` installs each landed proof.  The
+    node is built on a manager of the given engine (``Node`` takes a
+    manager), and no loop of it is started: ``PLANES["ticks"]`` ticks
+    paced at ``interval_s``, then a drain.  Each wrapper's launches: the
+    parent's converges (set to 0 before the first tick, read after the
+    drain) and the worker's graft kernels (set to 0 before its prewarm)."""
+    from protocol_tpu_torch.node.config import ProtocolConfig
     from protocol_tpu_torch.node.epoch import Epoch
     from protocol_tpu_torch.node.manager import Manager, ManagerConfig
-    from protocol_tpu_torch.obs import TRACER
+    from protocol_tpu_torch.node.server import Node
+    from protocol_tpu_torch.obs import TIMELINE, TRACER
     from protocol_tpu_torch.obs.metrics import PROOF_LAG_EPOCHS
     from protocol_tpu_torch.prover import ProvingPlane, ProvingPlaneConfig
 
     m = Manager(ManagerConfig(zk_backend=zk_backend, **plonk_ctx["config"]), prover=plonk_ctx["prover"])
     rejected = [v.reason for v in m.add_attestations_bulk(plonk_ctx["atts"]) if not v.accepted]
     check(not rejected, f"planes: attestations rejected: {rejected}")
+    cfg = m.config
+    node = Node(config=ProtocolConfig(
+        epoch_interval=int(PLANES["interval_s"]), trust_backend=cfg.backend, prover=cfg.prover,
+        srs_path=cfg.srs_path, async_prover=True, prover_workers=1, prover_queue_max=1,
+        prove_timeout_s=PLANES["prove_timeout_s"]), manager=m)
     landed = {}
 
     def on_proved(result):
         landed[result.epoch] = dict(t=time.perf_counter(), result=result)
         m.install_proof(result.epoch, result.pub_ins, result.proof)
 
-    cfg = m.config
     params = (cfg.num_neighbours, cfg.num_iter, cfg.initial_score, cfg.scale)
     job0 = m.build_proof_job(Epoch(0))
     plane = ProvingPlane(ProvingPlaneConfig(workers=1, queue_depth=1,
                                             prove_timeout_s=PLANES["prove_timeout_s"]),
                          on_proved=on_proved).start()
+    node._prover_plane = plane
     procs = []
     try:
         _, executor = plane.pool._snapshot()
@@ -1222,15 +1258,14 @@ def run_async(plonk_ctx, zk_backend, wrappers, check):
             if wait > 0:
                 time.sleep(wait)
             t0 = time.perf_counter()
-            with TRACER.epoch(k):
-                result = m.converge_epoch(Epoch(k), **NODE_KW)
-                t1 = time.perf_counter()
-                with TRACER.span("prove_enqueue"):
-                    status = plane.submit(m.build_proof_job(Epoch(k)))
-            t2 = time.perf_counter()
-            ticks.append(dict(epoch=k, started_s=t0 - t_loop, tick_s=t2 - t0, converge_s=t1 - t0,
-                              enqueue_s=t2 - t1, iterations=result.iterations,
-                              state_at_submit=status.state, lag_epochs=PROOF_LAG_EPOCHS.value()))
+            node._epoch_tick(Epoch(k))
+            t1 = time.perf_counter()
+            phases = (TIMELINE.get(k) or {}).get("phases", {})
+            ticks.append(dict(epoch=k, started_s=t0 - t_loop, tick_s=t1 - t0,
+                              converge_s=phases.get("converge"), enqueue_s=phases.get("prove_enqueue"),
+                              iterations=m.cached_results[Epoch(k)].iterations,
+                              state_after_tick=plane.status(k).state,
+                              lag_epochs=PROOF_LAG_EPOCHS.value()))
         loop_end = t_loop + PLANES["ticks"] * PLANES["interval_s"]
         time.sleep(max(0.0, loop_end - time.perf_counter()))
         t0 = time.perf_counter()
@@ -1287,8 +1322,6 @@ def planes_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
     backend's budget.  Returns each wrapper's launches on the phase's
     path: the converges in this process, the graft kernels in the
     worker."""
-    import shutil
-
     import numpy as np
 
     from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
@@ -1333,6 +1366,7 @@ def planes_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
         reasons={r: sum(1 for _, why in card0["verdicts"] if why == r)
                  for r in sorted({why for _, why in card0["verdicts"]}, key=str)},
         caches_equal=all(r["cache"] == card0["cache"] for r in runs.values()),
+        apply_order_equal={k: r["apply_order"] == card0["apply_order"] for k, r in runs.items()},
         converge_bit_equal=bool(np.array_equal(card0["scores"], card2["scores"])),
         converge_l1_vs_cpu=float(np.abs(card0["scores"] - cpu["scores"]).sum()),
         iterations={k: r["iterations"] for k, r in runs.items()},
@@ -1425,7 +1459,7 @@ def planes_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
             loop_s=r["loop_s"], drain_s=r["drain_s"],
             landed=sorted(r["landed"]), completed=stats["completed"],
             superseded=stats["superseded"], failed=stats["failed"],
-            states=states, lag_epochs_at_submit=[t["lag_epochs"] for t in ticks],
+            states=states, lag_epochs_after_tick=[t["lag_epochs"] for t in ticks],
             lag_epochs_after_drain=r["lag_epochs_after_drain"], lag_s=r["lag_s"],
             prove_s=prove_s, first_prove_s=prove_s.get(first),
             later_prove_s=[s for e, s in prove_s.items() if e != first],
@@ -1434,13 +1468,496 @@ def planes_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
             worker_launches=r["worker_launches"],
         )
         emit("planes_proving", zk_backend=zk_backend, nvidia_smi=smi, **proving[zk_backend])
-    os.environ.pop(CACHE_ENV, None)
-    shutil.rmtree(plonk_ctx["keys"].parent, ignore_errors=True)
     emit("planes", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
          admission_sigs_per_s={k: r["sigs_per_s"] for k, r in runs.items()},
          overlap_share={b: p["overlap_share"] for b, p in proving.items()},
          launches=totals)
     return totals
+
+
+SERVER = dict(
+    # The reference's default node (data/protocol-config.json: a 10 s
+    # epoch, the PLONK prover on data/srs-15.bin, the bootstrap group of
+    # 5) on the card backend, proving through one spawned worker.
+    ticks=3, interval_s=10, prover_workers=1, wait_s=300.0,
+    drain_timeout_s=600.0, sigterm_exit_s=30.0,
+    routes=("/score", "/proof/latest", "/proof/{last}", "/status", "/metrics",
+            "/metrics/fleet", "/slo", "/healthz", "/timeline/{last}", "/scores/drift",
+            "/debug/flight?n=50", "/trace/{last}", "/trace/pod", "/aggregate?epochs=x"),
+)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def http_request(port: int, method: str, path: str, body: bytes = b""):
+    """One HTTP/1.1 exchange with a node: (status, headers, body, seconds);
+    status None when the node closed the connection unanswered."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    head = f"{method} {path} HTTP/1.1\r\nhost: smoke\r\n"
+    if body:
+        head += f"content-length: {len(body)}\r\n"
+    writer.write((head + "\r\n").encode() + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    seconds = time.perf_counter() - t0
+    if not raw:
+        return None, {}, b"", seconds
+    top, _, payload = raw.partition(b"\r\n\r\n")
+    lines = top.decode("latin1").split("\r\n")
+    return int(lines[0].split()[1]), dict(ln.split(": ", 1) for ln in lines[1:]), payload, seconds
+
+
+def event_fixture(path, atts) -> None:
+    """The attestations as the AttestationCreated events a chain replay
+    delivers, one JSON line each."""
+    from protocol_tpu_torch.node.attestation import AttestationData
+    from protocol_tpu_torch.node.ethereum import AttestationCreatedEvent
+
+    path.write_text("".join(
+        AttestationCreatedEvent(
+            creator=f"0x{i + 1:040x}", about="0x" + "00" * 20, key=bytes(32),
+            val=AttestationData.from_attestation(a).to_bytes(),
+        ).to_json() + "\n"
+        for i, a in enumerate(atts)
+    ))
+
+
+def trace_kernels(directory) -> dict:
+    """What the ``torch.profiler`` trace a tick wrote holds
+    (``<profile_dir>/epoch_<n>/*.pt.trace.json``, the files the node's
+    ``profile_dir`` sessions leave): each profiled kernel's launches
+    (``PROFILED``, matched by substring as the node phase matches them),
+    and the other kernels' launches by name."""
+    counts: dict = {}
+    others: dict = {}
+    files = sorted(pathlib.Path(directory).glob("*.pt.trace.json"))
+    for f in files:
+        for ev in json.loads(f.read_text()).get("traceEvents", ()):
+            if ev.get("cat") == "kernel":
+                name = ev.get("name", "")
+                ours = [k for k in PROFILED if k in name]
+                for k in ours:
+                    counts[k] = counts.get(k, 0) + 1
+                if not ours:
+                    others[name[:48]] = others.get(name[:48], 0) + 1
+    return dict(files=[f.name for f in files], kernels=counts, other_kernels=others)
+
+
+def run_server_node(config, atts, reattestation, wrappers, check) -> dict:
+    """Part 1 of the ``server`` phase: ``Node.from_config(config)`` under
+    ``asyncio.run`` on this thread, its epoch loop on the wall clock.
+    The boot is held to the reference's order (recovery is watched from
+    its executor thread: the socket answers ``recovering`` and no loop
+    runs yet; then ``ok`` and both loops).  Once the fixture is admitted,
+    ``POST /attestation`` takes a re-attestation (200), its replay (400)
+    and a malformed payload (400); each wrapper's launches are set to 0;
+    ``SERVER["ticks"]`` ticks pass (then the epoch loop is cancelled, so
+    no further tick starts), the proving plane drains, every route is
+    read, the checkpoint directory the ticks wrote is copied aside, the
+    last epoch is checkpointed again now that its proof landed (the async
+    tick checkpoints before it), and the node stops."""
+    import asyncio
+    import shutil
+
+    from protocol_tpu_torch.node.attestation import AttestationData
+    from protocol_tpu_torch.node.checkpoint import CheckpointStore
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.server import Node
+    from protocol_tpu_torch.obs import JOURNAL, TIMELINE
+    from protocol_tpu_torch.obs import metrics as om
+
+    node = Node.from_config(config)
+    rec = dict(posts={}, routes={})
+
+    async def scenario():
+        loop = asyncio.get_running_loop()
+        recover = node._recover_state
+
+        def watched_recover():
+            port = node._server.sockets[0].getsockname()[1]
+            status, _, body, _ = asyncio.run_coroutine_threadsafe(
+                http_request(port, "GET", "/healthz"), loop).result(60)
+            rec["during_recovery"] = dict(
+                status=status, recovery=json.loads(body)["components"]["recovery"]["state"],
+                loops=len(node._tasks))
+            recover()
+
+        node._recover_state = watched_recover
+        try:
+            epochs0, dropped0 = om.EPOCHS_TOTAL.value(), om.EPOCH_TICKS_DROPPED.value()
+            t_boot = time.perf_counter()
+            await node.start()
+            rec["start_s"] = time.perf_counter() - t_boot
+            port = node._server.sockets[0].getsockname()[1]
+            status, _, body, _ = await http_request(port, "GET", "/healthz")
+            health = json.loads(body)
+            rec["boot_to_healthz_ok_s"] = time.perf_counter() - t_boot
+            rec["after_start"] = dict(status=status, recovery=health["components"]["recovery"]["state"],
+                                      loops=len(node._tasks), verdict=health["status"])
+            want = sorted(tuple(a.scores) for a in atts)
+            deadline = time.monotonic() + 60
+            while sorted(tuple(a.scores) for a in node.manager.attestations.values()) != want:
+                check(time.monotonic() < deadline, "server: the fixture was not admitted in 60 s")
+                await asyncio.sleep(0.05)
+            rec["fixture_admitted_s"] = time.perf_counter() - t_boot
+            payload = AttestationData.from_attestation(reattestation).to_bytes()
+            for name, path, data in (("reattestation", "/attestation?nonce=1", payload),
+                                     ("replay", "/attestation?nonce=1", payload),
+                                     ("malformed", "/attestation", b"\x00" * 31)):
+                status, _, body, seconds = await http_request(port, "POST", path, data)
+                rec["posts"][name] = dict(status=status, body=json.loads(body), ms=seconds * 1e3)
+            for w in wrappers:
+                w.launches = 0
+            t_ticks = time.perf_counter()
+            while om.EPOCHS_TOTAL.value() - epochs0 < SERVER["ticks"]:
+                check(time.perf_counter() - t_ticks < SERVER["wait_s"],
+                      f"server: {SERVER['ticks']} ticks did not pass in {SERVER['wait_s']} s")
+                await asyncio.sleep(0.02)
+            node._tasks[0].cancel()
+            rec["ticks_wall_s"] = time.perf_counter() - t_ticks
+            rec["launches"] = {w.__name__: w.launches for w in wrappers}
+            rec["epochs_ticked"] = om.EPOCHS_TOTAL.value() - epochs0
+            rec["ticks_dropped"] = om.EPOCH_TICKS_DROPPED.value() - dropped0
+            t0 = time.perf_counter()
+            rec["drained"] = await loop.run_in_executor(
+                None, node._prover_plane.drain, SERVER["drain_timeout_s"])
+            rec["drain_s"] = time.perf_counter() - t0
+            epochs = sorted(e.number for e in node.manager.cached_results)[-SERVER["ticks"]:]
+            last = epochs[-1]
+            rec["epochs"] = epochs
+            rec["states"] = {e: node._prover_plane.status(e).to_dict() for e in epochs}
+            rec["lag_epochs_after_drain"] = om.PROOF_LAG_EPOCHS.value()
+            for template in SERVER["routes"]:
+                path = template.format(last=last)
+                status, headers, body, seconds = await http_request(port, "GET", path)
+                rec["routes"][template] = dict(status=status, ms=seconds * 1e3, bytes=len(body),
+                                               content_type=headers.get("content-type"), body=body)
+            rec["tick_checkpoint_proofs"] = {}
+            store = CheckpointStore(config.checkpoint_dir)
+            for e in epochs:
+                snap = store.load(Epoch(e)) if e in store.epochs() else None
+                rec["tick_checkpoint_proofs"][e] = None if snap is None else snap.proof_json is not None
+            # What the ticks left (checkpoints written before their
+            # proofs landed) is kept for part 2 as it is, then the last
+            # epoch is checkpointed again with its landed proof.
+            rec["tick_checkpoint_dir"] = pathlib.Path(config.checkpoint_dir).with_name("ckpt_tick")
+            shutil.copytree(config.checkpoint_dir, rec["tick_checkpoint_dir"])
+            await loop.run_in_executor(
+                None, node._checkpoint_epoch, Epoch(last), node.manager.cached_results[Epoch(last)].scores)
+            t0 = time.perf_counter()
+            await node.stop()
+            rec["stop_s"] = time.perf_counter() - t0
+            rec["timeline"] = {e: TIMELINE.get(e) for e in epochs}
+            rec["failed_ticks"] = [ev for ev in JOURNAL.tail() if ev.get("what") == "epoch-tick-failed"]
+        finally:
+            # A failed check exits through here: the node and its
+            # workers stop either way.
+            if node._server is not None and node._server.is_serving():
+                await node.stop()
+
+    asyncio.run(scenario())
+    rec["node"] = node
+    return rec
+
+
+def run_server_process(config_path, port, timeout_s) -> dict:
+    """Part 2 of the ``server`` phase: ``python -m
+    protocol_tpu_torch.node.server --config <file>`` in a subprocess.
+    Once ``/healthz`` shows recovery ``ok``, read ``/score`` and
+    ``/status``, then SIGTERM it and wait for its exit."""
+    import asyncio
+    import signal
+
+    log = pathlib.Path(config_path).with_suffix(".log")
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "protocol_tpu_torch.node.server", "--config", str(config_path)],
+            cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+        )
+    rec = {}
+    try:
+        health = None
+        while proc.poll() is None and time.perf_counter() - t0 < timeout_s:
+            try:
+                status, _, body, _ = asyncio.run(http_request(port, "GET", "/healthz"))
+                health = json.loads(body)
+                if health["components"]["recovery"]["state"] == "ok":
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        rec["boot_to_healthz_ok_s"] = time.perf_counter() - t0
+        rec["recovery"] = health and health["components"]["recovery"]
+        if proc.poll() is None and health is not None:
+            for path in ("/score", "/status"):
+                status, _, body, seconds = asyncio.run(http_request(port, "GET", path))
+                rec[path] = dict(status=status, body=body, ms=seconds * 1e3)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rec["exit_code"] = proc.wait(timeout=SERVER["sigterm_exit_s"])
+        except subprocess.TimeoutExpired:
+            rec["exit_code"] = None
+        rec["sigterm_to_exit_s"] = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    rec["log_tail"] = log.read_text()[-3000:]
+    return rec
+
+
+def server_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
+    """The node server on the card: the reference's default node
+    (``data/protocol-config.json``: a 10 s epoch, the PLONK prover on the
+    committed SRS, the bootstrap group of 5, circuit check on) with
+    ``trust_backend="cuda-windowed"`` and ``async_prover`` with one
+    spawned prover worker, its checkpoints, journal and profiler traces
+    in a work directory, its chain events from a fixture carrying the
+    plonk cell's attestations, reusing the plonk phase's disk key cache.
+
+    Part 1 (``run_server_node``): the node in this process, 3 ticks of
+    its wall-clock epoch loop.  Checks: the boot order; the POST
+    verdicts; every route's status; no tick failed or dropped; each
+    tick converged on the card with K1 and K5-K8 launched for exactly
+    the ticks' iterations (the backend's budget); each tick's profiler
+    trace holds its converge's launches, warm ticks' too; each landed
+    proof verifies; a CPU manager fed the same
+    attestations converges the same epochs to the same iterations and
+    scores (rtol 1e-3, atol 1e-8), its graph equals the checkpointed
+    one, and its prove of the last epoch equals the served proof bytes.
+
+    Part 2 (``run_server_process``): ``python -m
+    protocol_tpu_torch.node.server`` on the same checkpoint directory
+    with a clock that does not tick: it recovers and serves part 1's
+    checkpointed proof byte for byte (the last epoch checkpointed again
+    after its proof landed), names ``cuda-windowed``, and on SIGTERM
+    exits within 30 s leaving its flight dump.  At the same time a
+    second one on the checkpoints the ticks wrote themselves: it
+    recovers the last epoch and answers ``/score`` with the reference's
+    400 ``InvalidQuery`` for a cache without a proof, since an async
+    tick checkpoints before its proof lands.
+
+    Returns each wrapper's launches over part 1's ticks."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.node.checkpoint import CheckpointStore
+    from protocol_tpu_torch.node.config import ProtocolConfig
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.zk.proof import CACHE_ENV, ProofRaw
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_server"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ[CACHE_ENV] = str(plonk_ctx["keys"])
+    _, atts, reattestation = node_group(5, NODE["seed"])
+    event_fixture(work / "events.jsonl", atts)
+    srs = str(HERE / PLONK["srs"])
+    defaults = ProtocolConfig.load(HERE / "data" / "protocol-config.json")
+    config = ProtocolConfig.from_json(json.dumps(dict(
+        epoch_interval=defaults.epoch_interval, endpoint=[[127, 0, 0, 1], free_port()],
+        prover=defaults.prover, srs_path=srs, trust_backend="cuda-windowed",
+        async_prover=True, prover_workers=SERVER["prover_workers"],
+        checkpoint_dir=str(work / "ckpt"), journal_path=str(work / "journal.jsonl"),
+        profile_dir=str(work / "profile"), event_fixture=str(work / "events.jsonl"),
+    )))
+    check((defaults.epoch_interval, defaults.prover, defaults.srs_path) == (SERVER["interval_s"],
+          "plonk", PLONK["srs"]), f"server: data/protocol-config.json changed: {defaults}")
+    budget = KERNEL_INVARIANTS["cuda-windowed"]
+    r = run_server_node(config, atts, reattestation, trust_wrappers, check)
+    node, epochs = r["node"], r["epochs"]
+    last = epochs[-1]
+    m = node.manager
+    # Each tick's seconds by phase (its timeline record: the epoch root
+    # span's children), printed before any check reads them.
+    traces = {e: trace_kernels(work / "profile" / f"epoch_{e}") for e in epochs}
+    ticks = {}
+    for e in epochs:
+        tl = r["timeline"][e] or {}
+        phases = tl.get("phases", {})
+        ticks[e] = dict(tick_s=tl.get("tick_seconds"), phases=phases,
+                        converge_s=phases.get("converge"), checkpoint_s=phases.get("checkpoint"),
+                        enqueue_s=phases.get("prove_enqueue"), iterations=m.cached_results[Epoch(e)].iterations,
+                        trace=traces[e]["kernels"], trace_other_kernels=traces[e]["other_kernels"],
+                        trace_files=len(traces[e]["files"]))
+    emit("server_ticks", nvidia_smi=smi, ticks=ticks, ticks_wall_s=r["ticks_wall_s"],
+         epochs_ticked=r["epochs_ticked"], ticks_dropped=r["ticks_dropped"],
+         failed_ticks=r["failed_ticks"], launches=r["launches"])
+    check(m.config.check_circuit and m.config.num_neighbours == 5 and str(m.device).startswith("cuda"),
+          f"server: the node is not the default cell on the card: {m.config}, {m.device}")
+
+    # -- part 1 checks ---------------------------------------------------------
+    during, after = r["during_recovery"], r["after_start"]
+    check(during == dict(status=200, recovery="recovering", loops=0),
+          f"server: the socket did not answer 'recovering' before the loops: {during}")
+    check(after["recovery"] == "ok" and after["loops"] == 2,
+          f"server: after start, recovery {after['recovery']} and {after['loops']} loops")
+    posts = {k: (v["status"], v["body"].get("reason")) for k, v in r["posts"].items()}
+    check(posts == {"reattestation": (200, None), "replay": (400, "duplicate"),
+                    "malformed": (400, "malformed-payload")}, f"server: POST verdicts {posts}")
+    statuses = {k: v["status"] for k, v in r["routes"].items()}
+    want_status = {k: 200 for k in SERVER["routes"]}
+    want_status.update({"/trace/pod": 404, "/aggregate?epochs=x": 400})
+    check(statuses == want_status, f"server: route statuses {statuses}")
+    check(r["routes"]["/metrics"]["content_type"].startswith("text/plain; version=0.0.4"),
+          f"server: /metrics content type {r['routes']['/metrics']['content_type']}")
+    status_doc = json.loads(r["routes"]["/status"]["body"])
+    check(status_doc["backend"] == "cuda-windowed", f"server: /status backend {status_doc['backend']}")
+    check(r["epochs_ticked"] == SERVER["ticks"] and len(epochs) == SERVER["ticks"]
+          and epochs == list(range(epochs[0], epochs[0] + SERVER["ticks"])),
+          f"server: ticked {r['epochs_ticked']} epochs {epochs}")
+    check(r["ticks_dropped"] == 0 and not r["failed_ticks"],
+          f"server: dropped {r['ticks_dropped']} ticks, failed {r['failed_ticks']}")
+    results = {e: m.cached_results[Epoch(e)] for e in epochs}
+    check(all(res.backend == "cuda-windowed" and res.iterations > 0 for res in results.values()),
+          f"server: converges {[(res.backend, res.iterations) for res in results.values()]}")
+    iterations = sum(res.iterations for res in results.values())
+    want_launches = {w.__name__: 0 for w in trust_wrappers}
+    want_launches.update(budget.expected_launches(iterations))
+    check(r["launches"] == want_launches,
+          f"server: tick launches {r['launches']}, {SERVER['ticks']} converges' budget {want_launches}")
+    check(all(t["files"] for t in traces.values()), f"server: a tick left no profiler trace: {traces}")
+    # Each tick's trace, warm ticks of one iteration too, holds every
+    # launch of its converge that the counters show (the budget for its
+    # iterations, which the counters' sum is held to above).
+    want_traced = {e: traced_budget(budget, results[e].iterations) for e in epochs}
+    check(all(traces[e]["kernels"] == want_traced[e] for e in epochs),
+          f"server: tick traces hold {[traces[e]['kernels'] for e in epochs]}, want {want_traced}")
+    check(r["drained"], "server: the proving plane did not drain")
+    states = {e: s["state"] for e, s in r["states"].items()}
+    check(states[last] == "proved" and all(s in ("proved", "superseded") for s in states.values()),
+          f"server: proof states {states}")
+    prover = plonk_ctx["prover"]
+    landed = sorted(e.number for e in m.cached_proofs)
+    verified = {e: prover.verify(m.get_proof(Epoch(e)).pub_ins, m.get_proof(Epoch(e)).proof)
+                for e in landed}
+    check(landed and all(verified.values()), f"server: landed proofs verify {verified}")
+    served = ProofRaw.from_json(r["routes"]["/proof/{last}"]["body"].decode()).to_proof()
+
+    # The same attestations on a CPU manager: the same epochs converge to
+    # the same iterations and scores; the last epoch proves to the served bytes.
+    cpu = Manager(ManagerConfig(backend="cuda-windowed", device="cpu", srs_path=srs), prover=prover)
+    cpu.add_attestations_bulk(atts)
+    check(cpu.add_attestation(reattestation).accepted, "server: the CPU manager refused the re-attestation")
+    cache = {h: tuple(a.scores) for h, a in m.attestations.items()}
+    check(cache == {h: tuple(a.scores) for h, a in cpu.attestations.items()},
+          "server: the node's attestation cache is not the fixture plus the re-attestation")
+    agree = {}
+    for e in epochs:
+        c = cpu.converge_epoch(Epoch(e), alpha=0.1)
+        agree[e] = dict(iterations=(results[e].iterations, c.iterations),
+                        max_abs=float(np.abs(np.asarray(results[e].scores) - c.scores).max()),
+                        close=bool(np.allclose(results[e].scores, c.scores, rtol=1e-3, atol=1e-8)))
+    check(all(a["iterations"][0] == a["iterations"][1] and a["close"] for a in agree.values()),
+          f"server: card vs CPU converges {agree}")
+    snap = CheckpointStore(work / "ckpt").load_latest()
+    check(snap.epoch.number == last and snap.proof_json is not None,
+          f"server: latest checkpoint epoch {snap.epoch.number}, proof {snap.proof_json is not None}")
+    graph_equal = all(np.array_equal(a, b) for a, b in (
+        (snap.graph.src, cpu.last_graph.src), (snap.graph.dst, cpu.last_graph.dst),
+        (snap.graph.weight, cpu.last_graph.weight)))
+    check(graph_equal and np.allclose(snap.scores, cpu.last_scores, rtol=1e-3, atol=1e-8),
+          "server: the checkpointed graph or scores differ from the CPU converge")
+    t0 = time.perf_counter()
+    cpu.calculate_proofs(Epoch(last))
+    cpu_prove_s = time.perf_counter() - t0
+    cpu_proof = cpu.get_proof(Epoch(last))
+    check((served.pub_ins, served.proof) == (cpu_proof.pub_ins, cpu_proof.proof),
+          "server: the served proof differs from the CPU manager's prove of the same epoch")
+
+    # -- part 2: the entry point in a subprocess ---------------------------------
+    # Part 1's configuration but for a clock that does not tick, a fresh
+    # journal and no fixture (whose replay would overwrite the recovered
+    # re-attestation with the older row, as a chain replay does): one
+    # process on the directory with the last epoch checkpointed again,
+    # and at once one on the copy of what the ticks wrote, which is what
+    # a node restarted after its own ticks recovers.
+    ports = []
+    while len(ports) < 2:
+        port = free_port()
+        ports += [port] if port not in ports else []
+    entries = {}
+    for (name, ckpt), port in zip((("journal2", work / "ckpt"), ("journal_tick", r["tick_checkpoint_dir"])),
+                                  ports):
+        entries[name] = (work / f"{name}.json", port)
+        entries[name][0].write_text(json.dumps({
+            **dataclasses.asdict(config), "epoch_interval": 3600, "endpoint": [[127, 0, 0, 1], port],
+            "checkpoint_dir": str(ckpt), "journal_path": str(work / f"{name}.jsonl"),
+            "event_fixture": None, "profile_dir": None,
+        }))
+    with concurrent.futures.ThreadPoolExecutor(len(entries)) as pool:
+        running = {name: pool.submit(run_server_process, path, port, SERVER["wait_s"])
+                   for name, (path, port) in entries.items()}
+        p2, p_tick = running["journal2"].result(), running["journal_tick"].result()
+    # No proof in the cache: /score answers the reference's 400 InvalidQuery.
+    check((p_tick.get("/score", {}).get("status"), p_tick.get("/score", {}).get("body")) == (400, b"InvalidQuery")
+          and (p_tick["recovery"] or {}).get("checkpoint_epoch") == last,
+          f"server: on the ticks' own checkpoints the entry point recovered {p_tick['recovery']} and "
+          f"answered /score {p_tick.get('/score')}, not 400 InvalidQuery {p_tick['log_tail']}")
+    check(json.loads(p_tick["/status"]["body"])["backend"] == "cuda-windowed"
+          and p_tick["exit_code"] is not None and p_tick["sigterm_to_exit_s"] < SERVER["sigterm_exit_s"]
+          and (work / "journal_tick.jsonl.dump").exists(),
+          f"server: the entry point on the ticks' checkpoints: {p_tick}")
+    check(p2.get("/score", {}).get("status") == 200,
+          f"server: the entry point did not serve /score: {p2.get('/score')} {p2['log_tail']}")
+    check(p2["/score"]["body"].decode() == snap.proof_json == r["routes"]["/score"]["body"].decode(),
+          "server: the entry point's /score is not part 1's checkpointed proof")
+    check(json.loads(p2["/status"]["body"])["backend"] == "cuda-windowed",
+          f"server: the entry point's /status {p2['/status']}")
+    check(p2["exit_code"] is not None and p2["sigterm_to_exit_s"] < SERVER["sigterm_exit_s"],
+          f"server: the entry point did not exit on SIGTERM in {SERVER['sigterm_exit_s']} s")
+    check((work / "journal2.jsonl.dump").exists(), "server: the entry point left no flight dump")
+
+    # -- record ----------------------------------------------------------------
+    for e in epochs:
+        ticks[e]["launches"] = budget.expected_launches(results[e].iterations)
+    rec = dict(
+        epochs=epochs, ticks=ticks, ticks_wall_s=r["ticks_wall_s"],
+        boot=dict(start_s=r["start_s"], boot_to_healthz_ok_s=r["boot_to_healthz_ok_s"],
+                  fixture_admitted_s=r["fixture_admitted_s"], during_recovery=during,
+                  after_start=after),
+        posts={k: dict(status=v["status"], reason=v["body"].get("reason"), ms=v["ms"])
+               for k, v in r["posts"].items()},
+        route_ms={k: v["ms"] for k, v in r["routes"].items()},
+        route_bytes={k: v["bytes"] for k, v in r["routes"].items()},
+        proof_states=r["states"], proof_lag_s={e: s.get("lag_seconds") for e, s in r["states"].items()},
+        prove_s={e: s.get("prove_seconds") for e, s in r["states"].items()},
+        lag_epochs_after_drain=r["lag_epochs_after_drain"], drain_s=r["drain_s"],
+        stop_s=r["stop_s"], landed=landed, proofs_verify=verified,
+        tick_checkpoints_hold_proof=r["tick_checkpoint_proofs"],
+        card_vs_cpu=agree, cpu_prove_s=cpu_prove_s, launches=r["launches"],
+        launches_match_budget=r["launches"] == want_launches,
+        recheckpointed_epoch=last,
+        entry_point=dict(boot_to_healthz_ok_s=p2["boot_to_healthz_ok_s"],
+                         recovery=p2["recovery"], score_ms=p2["/score"]["ms"],
+                         exit_code=p2["exit_code"], sigterm_to_exit_s=p2["sigterm_to_exit_s"]),
+        entry_point_on_tick_checkpoints=dict(
+            boot_to_healthz_ok_s=p_tick["boot_to_healthz_ok_s"], recovery=p_tick["recovery"],
+            score_status=p_tick["/score"]["status"], score_ms=p_tick["/score"]["ms"],
+            exit_code=p_tick["exit_code"], sigterm_to_exit_s=p_tick["sigterm_to_exit_s"]),
+    )
+    os.environ.pop(CACHE_ENV, None)
+    shutil.rmtree(plonk_ctx["keys"].parent, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    emit("server", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
+    return r["launches"]
 
 
 SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
@@ -2603,6 +3120,9 @@ def main() -> None:
     # -- 12. planes: admission through verify workers, async proving -------
     planes_launches = planes_phase(plonk_ctx, wrappers, check, emit, smi)
 
+    # -- 13. server: the node daemon over the card converge and the planes -
+    server_launches = server_phase(plonk_ctx, wrappers, check, emit, smi)
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -2650,6 +3170,7 @@ def main() -> None:
         entry["node_launches"] = {b: node_launches[b].get(wrapper, 0) for b in NODE["backends"]}
         entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
         entry["planes_launches"] = planes_launches.get(wrapper, 0)
+        entry["server_launches"] = server_launches.get(wrapper, 0)
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()
         }

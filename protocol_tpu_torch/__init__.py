@@ -17,8 +17,10 @@ reference so each counterpart is easy to find:
   the windowed step on the hand-written CUDA gather kernel
   (``ops/csrc/gather_window.cu``).
 - ``node``    — the single-device node: ``Manager`` (attestation ingest,
-  the epoch path, commitment proofs), ``EpochPipeline``,
-  ``CheckpointStore`` and ``AttestationWAL``.
+  the epoch path, commitment and PLONK proofs), ``EpochPipeline``,
+  ``CheckpointStore``, ``AttestationWAL``, ``ProtocolConfig``, the chain
+  event sources and the HTTP server (``python -m
+  protocol_tpu_torch.node.server --config <file>``).
 - ``crypto``, ``zk``, ``prover``, ``obs``, ``chaos``, ``analysis``,
   ``utils`` — the host modules the node needs: field, Poseidon and
   EdDSA (with the repository's C++ runtime built at first use), proofs,

@@ -126,16 +126,19 @@ TRACE_SETTLE_S = 0.2
 SETTLE_RANGE = "settle_trace"
 
 
-def settle_trace() -> None:
+def settle_trace(device=None) -> None:
     """Start a profiler session that has just started with launches it
-    may lose: ``TRACE_PRIMER_LAUNCHES`` small adds on the current card,
-    a synchronize, then a wait of ``TRACE_SETTLE_S``, all inside a
-    ``SETTLE_RANGE`` range (``settled_after``)."""
+    may lose: ``TRACE_PRIMER_LAUNCHES`` small adds on ``device`` (the
+    current card where None), a synchronize, then a wait of
+    ``TRACE_SETTLE_S``, all inside a ``SETTLE_RANGE`` range
+    (``settled_after``)."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     with torch.profiler.record_function(SETTLE_RANGE):
-        x = torch.zeros(1, device=torch.device("cuda", torch.cuda.current_device()))
+        x = torch.zeros(1, device=device)
         for _ in range(TRACE_PRIMER_LAUNCHES):
             x.add_(1.0)
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
         time.sleep(TRACE_SETTLE_S)
 
 

@@ -56,8 +56,7 @@ if TYPE_CHECKING:  # heavy import (torch via trust backends); runtime-lazy
     from ..node.attestation import Attestation
     from ..node.manager import Manager
 
-#: The shed reason code — the reference's ``node/server.py`` answers 429
-#: for it (the port's server is ROADMAP A5c (ii-b)).
+#: The shed reason code — ``node/server.py`` answers 429 for it.
 SHED_REASON = "queue-full"
 
 

@@ -1,11 +1,14 @@
 """The single-device node: attestation ingest, the epoch path, proofs,
-checkpoints and the write-ahead log, on the port's backends.
+checkpoints, the write-ahead log and the HTTP server, on the port's
+backends.
 
 The port of the reference package's ``node``: ``Manager`` (attestation
 cache, per-epoch convergence on a ``cuda-*`` or ``native-cpu`` backend,
-commitment proofs), ``EpochPipeline`` (host and device stages
-overlapped), ``CheckpointStore`` and ``AttestationWAL``.  The HTTP
-server, its config and the chain event source are not ported yet.
+commitment and PLONK proofs), ``EpochPipeline`` (host and device stages
+overlapped), ``CheckpointStore``, ``AttestationWAL``, ``ProtocolConfig``
+(``config``), the chain event sources (``ethereum``) and the daemon
+(``server``: ``python -m protocol_tpu_torch.node.server --config
+<file>``).  The pod (``node/pod.py``) is not ported yet.
 """
 
 from .attestation import Attestation, AttestationData  # noqa: F401

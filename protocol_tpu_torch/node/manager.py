@@ -20,8 +20,9 @@ rebuild of server/src/manager/mod.rs:72-237), on the port's backends:
   on the host (``zk.proof.PlonkEpochProver``), byte-identical to the
   reference package's at the same statement and SRS.
 
-Not ported yet: the proof aggregation (``aggregate_proofs`` raises
-``NotImplementedError``, ROADMAP A5c (i-b)).
+Not ported yet: the proof aggregation (``aggregate_proofs`` validates
+its request as the reference does, then raises ``NotImplementedError``,
+ROADMAP A5c (i-b)).
 """
 
 from __future__ import annotations
@@ -968,7 +969,22 @@ class Manager:
 
     def aggregate_proofs(self, epochs: list[Epoch]):
         """Batch-verify cached epoch SNARKs with one pairing check (the
-        reference's ``zk.aggregator`` accumulation).  Not ported yet."""
+        reference's ``zk.aggregator`` accumulation).  The reference's
+        cheap validation runs first and raises its ``EigenError``s (not
+        the plonk prover, a proof not cached, the prover still warming
+        up), so ``GET /aggregate`` answers those 400s as the reference
+        does; the accumulation itself is not ported yet and raises."""
+        from .errors import EigenErrorCode
+
+        if self.config.prover != "plonk":
+            raise EigenError(
+                EigenErrorCode.VERIFICATION_ERROR,
+                "aggregation requires the plonk prover",
+            )
+        for epoch in epochs:
+            self.get_proof(epoch)
+        if self._prover is None:
+            raise EigenError(EigenErrorCode.PROVING_ERROR, "prover still warming up")
         raise NotImplementedError(
             f"proof aggregation is not ported to protocol_tpu_torch yet ({NOT_PORTED})"
         )

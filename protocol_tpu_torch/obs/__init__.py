@@ -1,8 +1,8 @@
 """Node-wide observability: trace spans, metrics, the flight recorder,
 lineage, the epoch timeline and runtime invariant watchers.
 
-The port's copy of the reference's instrumentation layer, as far as the
-single-device node and its two planes use it:
+The port's copy of the reference's instrumentation layer, exporting
+what the reference's ``obs`` package exports:
 
 - :mod:`~protocol_tpu_torch.obs.trace` — hierarchical spans collected
   into a per-epoch span tree (``TRACER``);
@@ -17,16 +17,19 @@ single-device node and its two planes use it:
   (``TIMELINE``);
 - :mod:`~protocol_tpu_torch.obs.watchers` — the kernel-build watch
   around each converge (``RECOMPILES``), per-span device-memory
-  watermarks from ``torch.cuda.memory_stats`` and the score-drift
-  monitor (``DRIFT``);
+  watermarks from ``torch.cuda.memory_stats``, the score-drift
+  monitor (``DRIFT``) and the pod straggler watcher (``STRAGGLERS``);
 - :mod:`~protocol_tpu_torch.obs.export` — the Prometheus and JSON
   exporters and the ``torch.profiler`` session;
 - :mod:`~protocol_tpu_torch.obs.fleet` — cross-process aggregation:
   the registry snapshots that the verify and prover workers ship back
-  (``FLEET``), the fleet directory exchange and the merged exposition.
-
-The SLO engine (``slo``) and the pod trace stitcher (``podtrace``) serve
-the node's HTTP server and the pod, and are not ported yet.
+  (``FLEET``), the fleet directory exchange and the merged exposition;
+- :mod:`~protocol_tpu_torch.obs.slo` — the declarative SLO engine
+  behind ``GET /slo`` (``SLO_ENGINE``): objectives over the registry
+  with burn-rate state and journaled transitions;
+- :mod:`~protocol_tpu_torch.obs.podtrace` — the pod trace stitcher:
+  per-host span trees clock-aligned into one pod epoch
+  (``POD_TRACES``), served as ``GET /trace/pod/<epoch>``.
 
 Doctrine: spans, metrics and journal writes live at host boundaries
 only; the per-iteration residual trajectory is written on the device
@@ -39,9 +42,24 @@ from __future__ import annotations
 import time as _time
 
 from . import metrics as _metrics
+from .export import metrics_json, profile_session, prometheus_text
+from .fleet import FLEET, FleetAggregator, fleet_prometheus_text, registry_snapshot
 from .journal import JOURNAL, FlightRecorder
 from .lineage import LINEAGE, LineageTracker
 from .metrics import METRICS, MetricsRegistry
+from .podtrace import (
+    POD_TRACES,
+    PodTraceStore,
+    publish_epoch_trace,
+    stitch_epoch,
+)
+from .slo import (
+    SLO_ENGINE,
+    SLOEngine,
+    SLObjective,
+    install_pod_defaults,
+    pod_objectives,
+)
 from .timeline import TIMELINE, TimelineRegistry
 from .trace import (
     TRACER,
@@ -54,9 +72,11 @@ from .watchers import (
     DRIFT,
     MEMORY_WATERMARKS,
     RECOMPILES,
+    STRAGGLERS,
     MemoryWatermarkWatcher,
     RecompileTracker,
     ScoreDriftMonitor,
+    StragglerWatcher,
 )
 
 
@@ -100,22 +120,40 @@ TRACER.on_span_open = MEMORY_WATERMARKS.on_open
 
 __all__ = [
     "DRIFT",
+    "FLEET",
     "JOURNAL",
     "LINEAGE",
     "METRICS",
     "MEMORY_WATERMARKS",
+    "POD_TRACES",
     "RECOMPILES",
+    "SLO_ENGINE",
+    "STRAGGLERS",
     "TIMELINE",
+    "FleetAggregator",
     "FlightRecorder",
     "LineageTracker",
     "MemoryWatermarkWatcher",
     "MetricsRegistry",
+    "PodTraceStore",
     "RecompileTracker",
+    "SLOEngine",
+    "SLObjective",
     "ScoreDriftMonitor",
     "Span",
     "SpanContextFilter",
+    "StragglerWatcher",
     "TRACER",
     "TimelineRegistry",
     "Tracer",
     "configure_logging",
+    "fleet_prometheus_text",
+    "install_pod_defaults",
+    "metrics_json",
+    "pod_objectives",
+    "profile_session",
+    "prometheus_text",
+    "publish_epoch_trace",
+    "registry_snapshot",
+    "stitch_epoch",
 ]

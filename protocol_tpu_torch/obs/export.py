@@ -116,12 +116,18 @@ def metrics_json(registry: MetricsRegistry | None = None) -> dict[str, Any]:
 
 
 @contextlib.contextmanager
-def profile_session(log_dir: str | None) -> Iterator[None]:
+def profile_session(log_dir: str | None, device=None) -> Iterator[None]:
     """Opt-in ``torch.profiler`` capture: a device-timeline trace of
     the wrapped region (host activity, and the card's where one is
     visible), written into ``log_dir`` in the TensorBoard plugin's
     format when the session closes; a no-op context when ``log_dir``
-    is None or empty."""
+    is None or empty.
+
+    Where the wrapped region runs on a card (``device``, a CUDA device,
+    or the current card where None), the session is settled on it
+    before the region starts (``bench/_timing.py::settle_trace``): the
+    profiler can lose a fresh session's first launches, which for a
+    converge of one iteration are all of them."""
     if not log_dir:
         yield
         return
@@ -129,9 +135,14 @@ def profile_session(log_dir: str | None) -> Iterator[None]:
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
+    card = torch.cuda.is_available() and (device is None or torch.device(device).type == "cuda")
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        if card:
+            from ..bench._timing import settle_trace
+
+            settle_trace(device)
         yield
 
 

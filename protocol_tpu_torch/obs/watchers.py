@@ -1,6 +1,7 @@
-"""Runtime invariant watchers: kernel builds, memory watermarks, drift.
+"""Runtime invariant watchers: kernel builds, memory watermarks, drift,
+pod stragglers.
 
-Three monitors that turn the epoch path's guarantees into watched ones
+Four monitors that turn the epoch path's guarantees into watched ones
 on a running node:
 
 - :class:`RecompileTracker` — the port's counterpart of the reference's
@@ -19,6 +20,9 @@ on a running node:
   mover peers, and a residual-stall detector flagging non-monotone
   convergence trajectories.  Served as ``GET /scores/drift`` and the
   drift/stall gauges.
+- :class:`StragglerWatcher` — cross-host phase-time straggler
+  detection over the pod trace stitcher's per-phase host durations
+  (``obs/podtrace.py``), held on ``eigentrust_pod_straggler{host}``.
 
 This module imports only the standard library at import time; torch is
 reached lazily inside methods, and only at host boundaries.
@@ -27,6 +31,7 @@ reached lazily inside methods, and only at host boundaries.
 from __future__ import annotations
 
 import logging
+import statistics
 import sys
 import threading
 from typing import Any, Iterable
@@ -335,11 +340,152 @@ class ScoreDriftMonitor:
 DRIFT = ScoreDriftMonitor()
 
 
+
+# ---------------------------------------------------------------------------
+# Pod straggler watcher
+# ---------------------------------------------------------------------------
+
+
+class StragglerWatcher:
+    """Cross-host phase-time straggler detection.
+
+    The pod trace stitcher (obs/podtrace.py) feeds every stitched
+    epoch's per-phase host durations; a host *exceeds* when some
+    phase's duration is over ``ratio`` times the pod median for that
+    phase AND over the median by at least ``min_seconds`` (the absolute
+    floor keeps microsecond jitter on tiny phases from counting).  A
+    host that exceeds for ``k`` *consecutive* stitched epochs is
+    flagged: journaled as an anomaly, warned, and held at 1 on
+    ``eigentrust_pod_straggler{host}`` until a clean epoch clears it —
+    one slow epoch is noise, k in a row is a sick host."""
+
+    def __init__(
+        self, ratio: float = 1.5, k: int = 3, min_seconds: float = 0.05
+    ) -> None:
+        self.ratio = float(ratio)
+        self.k = int(k)
+        self.min_seconds = float(min_seconds)
+        self._lock = threading.Lock()
+        self._streaks: dict[int, int] = {}
+        self._flagged: dict[int, dict[str, Any]] = {}
+
+    def configure(
+        self,
+        *,
+        ratio: float | None = None,
+        k: int | None = None,
+        min_seconds: float | None = None,
+    ) -> "StragglerWatcher":
+        """Adjust thresholds (node boot from config knobs); streaks
+        keep counting across a reconfigure."""
+        with self._lock:
+            if ratio is not None:
+                self.ratio = float(ratio)
+            if k is not None:
+                self.k = int(k)
+            if min_seconds is not None:
+                self.min_seconds = float(min_seconds)
+        return self
+
+    def observe(
+        self, epoch: int, per_phase: dict[str, dict[int, float]]
+    ) -> dict[str, Any]:
+        """Record one stitched epoch's ``{phase: {host: seconds}}``;
+        returns ``{"epoch", "exceeded": {host: [phases]}, "flagged":
+        [hosts]}``.  Hosts absent from every phase keep their streaks
+        (a missing host is the stitch-completeness SLO's problem, not
+        evidence it sped up)."""
+        with self._lock:
+            ratio = self.ratio
+            k = self.k
+            min_seconds = self.min_seconds
+        exceeded: dict[int, list[str]] = {}
+        observed: set[int] = set()
+        for phase, by_host in per_phase.items():
+            if len(by_host) < 2:
+                continue
+            median = statistics.median(by_host.values())
+            for host, duration in by_host.items():
+                observed.add(int(host))
+                if (
+                    duration > ratio * median
+                    and duration - median > min_seconds
+                ):
+                    exceeded.setdefault(int(host), []).append(phase)
+        newly_flagged: list[int] = []
+        with self._lock:
+            for host in observed:
+                if host in exceeded:
+                    self._streaks[host] = self._streaks.get(host, 0) + 1
+                    if (
+                        self._streaks[host] >= k
+                        and host not in self._flagged
+                    ):
+                        self._flagged[host] = {
+                            "epoch": int(epoch),
+                            "phases": sorted(exceeded[host]),
+                            "streak": self._streaks[host],
+                        }
+                        newly_flagged.append(host)
+                else:
+                    self._streaks[host] = 0
+                    self._flagged.pop(host, None)
+            flagged = sorted(self._flagged)
+        for host in observed:
+            _metrics.POD_STRAGGLER.set(
+                1.0 if host in flagged else 0.0, host=str(host)
+            )
+        for host in newly_flagged:
+            phases = ", ".join(exceeded[host])
+            log.warning(
+                "pod straggler: host %d exceeded the pod median by %.1fx "
+                "for %d consecutive epochs (phases: %s)",
+                host,
+                ratio,
+                k,
+                phases,
+            )
+            JOURNAL.record(
+                "anomaly",
+                what="pod-straggler",
+                host=host,
+                epoch=int(epoch),
+                phases=sorted(exceeded[host]),
+                ratio=ratio,
+                k=k,
+            )
+        return {
+            "epoch": int(epoch),
+            "exceeded": {h: sorted(p) for h, p in sorted(exceeded.items())},
+            "flagged": flagged,
+        }
+
+    def flagged(self) -> dict[int, dict[str, Any]]:
+        """Currently-flagged hosts -> the flagging evidence."""
+        with self._lock:
+            return {h: dict(v) for h, v in self._flagged.items()}
+
+    def streaks(self) -> dict[int, int]:
+        with self._lock:
+            return dict(self._streaks)
+
+    def reset(self) -> None:
+        with self._lock:
+            self._streaks.clear()
+            self._flagged.clear()
+
+
+#: Process-global straggler watcher (fed by the pod trace stitcher).
+STRAGGLERS = StragglerWatcher()
+
+
 __all__ = [
     "DRIFT",
     "MEMORY_WATERMARKS",
     "RECOMPILES",
+    "STRAGGLERS",
     "MemoryWatermarkWatcher",
     "RecompileTracker",
     "ScoreDriftMonitor",
+    "StragglerWatcher",
 ]

@@ -489,23 +489,30 @@ def registered_backends() -> list[str]:
     return names
 
 
+def backend_class(name: str) -> tuple[type, str | None]:
+    """The backend class a name selects and its per-shard kernel suffix
+    (None without one); raises ``ValueError`` for a name outside the
+    ladder, a ``tpu-*`` name of the reference's ladder included."""
+    base, _, kernel = name.partition(":")
+    if kernel and base != "cuda-sharded":
+        raise ValueError(
+            f"unknown trust backend {name!r}; only cuda-sharded takes a "
+            f":<kernel> suffix (available: {sorted(_BACKENDS)})"
+        )
+    try:
+        return _BACKENDS[base], kernel or None
+    except KeyError:
+        raise ValueError(
+            f"unknown trust backend {name!r}; available: {sorted(_BACKENDS)}"
+        ) from None
+
+
 def get_backend(name: str, **kwargs) -> TrustBackend:
     """Construct a backend by name; ``device`` (default: the card; not
     taken by ``native-cpu``) and the backend's own arguments pass
     through.  ``cuda-sharded`` alone takes a per-shard kernel suffix,
     ``cuda-sharded:cuda-windowed``."""
-    base, _, kernel = name.partition(":")
+    cls, kernel = backend_class(name)
     if kernel:
-        if base != "cuda-sharded":
-            raise ValueError(
-                f"unknown trust backend {name!r}; only cuda-sharded takes a "
-                f":<kernel> suffix (available: {sorted(_BACKENDS)})"
-            )
         kwargs.setdefault("kernel", kernel)
-    try:
-        cls = _BACKENDS[base]
-    except KeyError:
-        raise ValueError(
-            f"unknown trust backend {name!r}; available: {sorted(_BACKENDS)}"
-        ) from None
     return cls(**kwargs)

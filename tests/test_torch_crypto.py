@@ -239,3 +239,72 @@ def test_job_seed_bit_equal():
     assert jobs.job_fingerprint(jobs.ProofJob(**kw)) == ref_jobs.job_fingerprint(
         ref_jobs.ProofJob(**kw)
     )
+
+
+class TestMerkle:
+    """``tests/test_crypto.py::TestMerkle`` and the merkle half of
+    ``tests/test_zk_chips.py`` re-targeted at the port, then the trees
+    and paths held against the reference's."""
+
+    def test_build_and_path(self):
+        from protocol_tpu_torch.crypto.merkle import MerkleTree, Path
+
+        leaves = elements(7, 9)
+        tree = MerkleTree.build(leaves, 4)
+        path = Path.find(tree, leaves[4])
+        assert path.verify()
+        assert path.pairs[tree.height][0] == tree.root
+
+    def test_tampered_path_fails(self):
+        from protocol_tpu_torch.crypto.merkle import MerkleTree, Path
+
+        tree = MerkleTree.build([1, 2, 3, 4], 2)
+        path = Path.find(tree, 3)
+        path.pairs[0] = (path.pairs[0][0], path.pairs[0][1] + 1)
+        assert not path.verify()
+
+    @pytest.mark.parametrize("height,count", [(1, 1), (2, 4), (3, 5), (4, 9), (5, 32)])
+    def test_levels_and_paths_equal_the_references(self, height, count):
+        from protocol_tpu.crypto import merkle as ref_merkle
+        from protocol_tpu_torch.crypto import merkle
+
+        leaves = elements(height * 100 + count, count)
+        tree = merkle.MerkleTree.build(leaves, height)
+        ref_tree = ref_merkle.MerkleTree.build(leaves, height)
+        assert tree.levels == ref_tree.levels and tree.root == ref_tree.root
+        for value in leaves:
+            path, ref_path = merkle.Path.find(tree, value), ref_merkle.Path.find(ref_tree, value)
+            assert path.pairs == ref_path.pairs
+            assert path.verify() and ref_path.verify()
+
+    def _chip_inputs(self):
+        from protocol_tpu_torch.crypto.merkle import MerkleTree, Path
+        from protocol_tpu_torch.zk.chips import MerklePathChip
+        from protocol_tpu_torch.zk.cs import ConstraintSystem
+        from protocol_tpu_torch.zk.gadgets import PoseidonChip, StdGate
+
+        tree = MerkleTree.build([7, 11, 13, 17, 19, 23, 29, 31], 3)
+        cs = ConstraintSystem()
+        std = StdGate(cs)
+        chip = MerklePathChip(cs, std, PoseidonChip(cs))
+        return tree, Path.find(tree, 13), cs, std, chip
+
+    @pytest.mark.parametrize("case", ["valid", "wrong_value", "wrong_root", "tampered_sibling"])
+    def test_merkle_path_chip(self, case):
+        """``tests/test_zk_chips.py::TestMerklePathChip``: the chip holds
+        a valid path and refuses a wrong value, root or sibling."""
+        tree, path, cs, std, chip = self._chip_inputs()
+        pairs = [list(p) for p in path.pairs[:-1]]
+        value, root = 13, tree.root
+        if case == "wrong_value":
+            value = 14
+        elif case == "wrong_root":
+            root += 1
+        elif case == "tampered_sibling":
+            pairs[1][0] += 1
+        chip.verify_path(std.witness(value), [(std.witness(a), std.witness(b)) for a, b in pairs],
+                         std.witness(root))
+        if case == "valid":
+            cs.assert_satisfied()
+        else:
+            assert cs.verify()

@@ -3,11 +3,11 @@ reference's (``protocol_tpu.ingest``).
 
 Two halves:
 
-- the reference's own suite (``tests/test_ingest.py``, all but the
-  HTTP route, which belongs to the server) re-targeted at the port:
-  sharded dedup, rate limits, the verify worker pool with crash
-  recovery, the ``IngestPlane`` pipeline and the manager's uniform
-  ``IngestResult``;
+- the reference's own suite (``tests/test_ingest.py``) re-targeted at
+  the port: sharded dedup, rate limits, the verify worker pool with
+  crash recovery, the ``IngestPlane`` pipeline, the manager's uniform
+  ``IngestResult`` and the server's ``POST /attestation`` route (accept,
+  replay, malformed payload, 429 shed);
 - parity: the same inputs through both packages — dedup shard
   placement, dedup and policy verdicts, ``verify_batch``, and one
   seeded attestation stream (fresh, replayed, stale-nonce, badly
@@ -638,3 +638,96 @@ class TestPlaneStreamParity:
             assert (accepted, reason) == (d.accepted, d.reason)
             compared += 1
         assert compared > len(atts) // 3
+
+
+class TestServerIngestRoute:
+    """``tests/test_ingest.py::TestServerIngestRoute`` on the port's
+    server: ``POST /attestation`` through the admission plane."""
+
+    @staticmethod
+    async def _post(port, body, path="/attestation"):
+        import asyncio
+
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(
+            f"POST {path} HTTP/1.1\r\nhost: t\r\n"
+            f"content-length: {len(body)}\r\n\r\n".encode() + body
+        )
+        await writer.drain()
+        response = (await reader.read()).decode()
+        writer.close()
+        head, _, payload = response.partition("\r\n\r\n")
+        return int(head.split()[1]), payload
+
+    def test_post_accept_replay_and_shed(self):
+        import asyncio
+
+        from protocol_tpu_torch.node.config import ProtocolConfig
+        from protocol_tpu_torch.node.server import Node
+
+        async def scenario():
+            cfg = ProtocolConfig(epoch_interval=3600, endpoint=((127, 0, 0, 1), 0),
+                                 prover="commitment", device="cpu")
+            node = Node.from_config(cfg)
+            await node.start()
+            port = node._server.sockets[0].getsockname()[1]
+            payload = AttestationData.from_attestation(make_att(11)).to_bytes()
+            first = await self._post(port, payload)
+            replay = await self._post(port, payload)
+            garbage = await self._post(port, b"\x00" * 31)
+            # Wedge the verifier and flood a 1-slot queue: the bounded
+            # intake must answer 429, not queue without bound.
+            hold = threading.Event()
+            node._ingest.pool.verify = lambda ph, items: (hold.wait(10), [True] * len(items))[1]
+            node._ingest._submit_queue.maxsize = 1
+            node._ingest._batch_queue.maxsize = 1
+            flood_task = asyncio.gather(*[
+                self._post(port, AttestationData.from_attestation(
+                    make_att(20 + i, sender=i % 5)).to_bytes())
+                for i in range(8)
+            ])
+            await asyncio.sleep(0.5)
+            hold.set()
+            floods = await flood_task
+            await node.stop()
+            return first, replay, garbage, floods
+
+        first, replay, garbage, floods = asyncio.run(scenario())
+        assert first[0] == 200 and '"accepted": true' in first[1]
+        assert replay[0] == 400 and "duplicate" in replay[1]
+        assert garbage[0] == 400 and "malformed-payload" in garbage[1]
+        assert any(status == 429 for status, _ in floods), floods
+        for status, body in floods:
+            assert status in (200, 400, 429, 500), (status, body)
+
+    def test_nonce_query_and_no_plane_path(self):
+        """``?nonce=N`` reaches the plane's nonce gate (a lower nonce is
+        ``stale-nonce``); with ``ingest_plane=false`` the direct path
+        answers the manager's verdicts."""
+        import asyncio
+
+        from protocol_tpu_torch.node.config import ProtocolConfig
+        from protocol_tpu_torch.node.server import Node
+
+        async def scenario(plane):
+            cfg = ProtocolConfig(epoch_interval=3600, endpoint=((127, 0, 0, 1), 0),
+                                 prover="commitment", device="cpu", ingest_plane=plane)
+            node = Node.from_config(cfg)
+            await node.start()
+            port = node._server.sockets[0].getsockname()[1]
+            out = [
+                await self._post(port, AttestationData.from_attestation(make_att(i)).to_bytes(),
+                                 path=f"/attestation?nonce={n}")
+                for i, n in ((31, 5), (32, 4))
+            ]
+            bad = make_att(33, bad_sig=True)
+            out.append(await self._post(port, AttestationData.from_attestation(bad).to_bytes()))
+            await node.stop()
+            return out
+
+        with_plane = asyncio.run(scenario(True))
+        assert [s for s, _ in with_plane] == [200, 400, 400]
+        assert "stale-nonce" in with_plane[1][1] and "bad-signature" in with_plane[2][1]
+        direct = asyncio.run(scenario(False))
+        assert [s for s, _ in direct] == [200, 200, 400]
+        assert "bad-signature" in direct[2][1]

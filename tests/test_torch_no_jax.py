@@ -78,7 +78,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "zk.graft.field", "zk.graft.ntt", "zk.graft.pippenger", "ops.segments",
                 "zk.kzg", "zk.plonk", "obs.export", "obs.fleet", "ingest.dedup",
                 "ingest.ratelimit", "ingest.workers", "ingest.plane", "prover.workers",
-                "prover.plane"):
+                "prover.plane", "node.config", "node.ethereum", "node.server", "obs.slo",
+                "obs.podtrace", "crypto.merkle"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -126,6 +127,101 @@ def test_spawned_plane_workers_load_neither_jax_nor_the_reference():
     finally:
         verify.close()
         prove.close()
+
+
+def test_the_server_entry_point_serves_and_stops_without_jax(tmp_path):
+    """``python -m protocol_tpu_torch.node.server --config <file>`` on the
+    CPU (``device: "cpu"``, the commitment prover, a free port, an epoch
+    clock that does not tick): ``/healthz`` answers, ``SIGTERM`` ends the
+    process within 30 s and leaves its flight dump, and the import log
+    (``-X importtime``, every module the process imported, at boot and
+    after) names no ``jax``, ``jaxlib`` or ``protocol_tpu`` module."""
+    import signal
+    import socket
+    import time
+
+    def get(path):
+        with socket.create_connection(("127.0.0.1", port), timeout=5) as conn:
+            conn.sendall(f"GET {path} HTTP/1.1\r\nhost: t\r\n\r\n".encode())
+            raw = b"".join(iter(lambda: conn.recv(65536), b""))
+        head, _, body = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), json.loads(body)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    config = tmp_path / "node.json"
+    config.write_text(json.dumps({
+        "epoch_interval": 3600, "endpoint": [[127, 0, 0, 1], port], "prover": "commitment",
+        "trust_backend": "cuda-windowed", "device": "cpu", "wal_fsync": False,
+        "checkpoint_dir": str(tmp_path / "ckpt"), "journal_path": str(tmp_path / "journal.jsonl"),
+    }))
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    log = tmp_path / "stderr.log"
+    with open(log, "w") as stderr:
+        proc = subprocess.Popen(
+            [sys.executable, "-X", "importtime", "-m", "protocol_tpu_torch.node.server",
+             "--config", str(config)],
+            cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=stderr,
+        )
+    try:
+        health = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                health = get("/healthz")
+            except OSError:
+                health = None
+            if health is not None and health[1]["components"]["recovery"]["state"] == "ok":
+                break
+            time.sleep(0.2)
+        assert health is not None, (proc.poll(), log.read_text()[-2000:])
+        assert health[0] == 200 and health[1]["components"]["recovery"]["state"] == "ok"
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=30)
+        assert time.monotonic() - t0 < 30
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = log.read_text()
+    assert (tmp_path / "journal.jsonl.dump").exists()
+    assert "flight recorder dumped" in err and "SIGTERM" in err
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in err.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    # ``-m`` runs the server module as ``__main__``; what it imports is logged.
+    for mod in ("protocol_tpu_torch.node.manager", "protocol_tpu_torch.node.config",
+                "protocol_tpu_torch.ingest.plane", "protocol_tpu_torch.obs.slo"):
+        assert mod in imported, mod
+    assert [m for m in imported if forbidden(m)] == []
+
+
+def server_raises_without_a_card(tmp_path, doc):
+    """``python -m protocol_tpu_torch.node.server`` on ``doc``, where no
+    card is visible: it must exit non-zero naming the missing card."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the node would boot on it")
+    config = tmp_path / "node.json"
+    config.write_text(json.dumps({"prover": "commitment", "endpoint": [[127, 0, 0, 1], 0], **doc}))
+    out = subprocess.run(
+        [sys.executable, "-m", "protocol_tpu_torch.node.server", "--config", str(config)],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_the_server_entry_point_raises_without_a_card(tmp_path):
+    """With ``device`` unset and a card backend, the entry point raises
+    where no card is visible: nothing falls back to the CPU."""
+    server_raises_without_a_card(tmp_path, {"trust_backend": "cuda-windowed"})
+
+
+def test_the_server_entry_point_defaults_to_the_card(tmp_path):
+    """A config that names neither a backend nor a device boots on the
+    card (the port's default rung), so it too raises without one."""
+    server_raises_without_a_card(tmp_path, {})
 
 
 def test_importing_the_node_builds_no_library():

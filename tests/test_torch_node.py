@@ -230,18 +230,24 @@ class TestProofs:
 
     def test_plonk_prover_raises_naming_the_roadmap_item(self, monkeypatch):
         """The PLONK prover is ported (``tests/test_torch_plonk_node.py``);
-        what of it is not, the aggregation, raises naming its ROADMAP item.
+        what of it is not, the aggregation, validates a request as the
+        reference does (an epoch with no cached proof is the reference's
+        ``EigenError``) and past that raises naming its ROADMAP item
+        (``test_torch_plonk_node.py::TestNotPorted``).
         The graft kernels are ported (A8) and run on the node's device:
         with none named and no card, the prove raises before any keygen
         and with no proof cached, and does not fall back to the host."""
         import torch
 
+        from protocol_tpu_torch.node.errors import EigenError, EigenErrorCode
+
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         m = Manager(ManagerConfig(check_circuit=False, zk_backend="graft"))
         assert m.config.prover == "plonk"
         m.generate_initial_attestations()
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A5c \(i-b\)"):
+        with pytest.raises(EigenError) as err:
             m.aggregate_proofs([Epoch(1)])
+        assert err.value.code == EigenErrorCode.PROOF_NOT_FOUND
         with pytest.raises(RuntimeError, match="no CUDA device"):
             m.calculate_proofs(Epoch(1))
         assert m._prover is None

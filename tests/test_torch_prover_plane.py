@@ -1,11 +1,12 @@
 """The port's asynchronous proving plane (``protocol_tpu_torch.prover``)
 beside the reference's (``protocol_tpu.prover``).
 
-The reference's suite (``tests/test_prover_plane.py``, all but the HTTP
-proof route, which belongs to the server) re-targeted at the port: the
-flat ``ProofJob``, the lifecycle state machine, supersede under
-backpressure, crash recovery in spawned workers, the per-process prover
-cache and the span graft.  Then parity and the port's own field:
+The reference's suite (``tests/test_prover_plane.py``) re-targeted at
+the port: the flat ``ProofJob``, the lifecycle state machine, supersede
+under backpressure, crash recovery in spawned workers, the per-process
+prover cache, the span graft and the server's ``/proof/<epoch>`` route
+(its bodies equal the reference's but for the timings).  Then parity
+and the port's own field:
 
 - the port's sync (``Manager.calculate_proofs``), in-process
   (``prove_job``) and pooled (a spawned, prewarmed worker) PLONK proofs
@@ -526,3 +527,83 @@ def test_two_peer_graft_prove_job_on_the_cpu_equals_the_reference(plonk_manager,
     job = dataclasses.replace(plonk_manager.build_proof_job(Epoch(12)), zk_backend="graft",
                               zk_device="cpu")
     assert prove_job(job).proof == reference_proof.proof
+
+
+# ---------------------------------------------------------------------------
+# The server's /proof route
+# ---------------------------------------------------------------------------
+
+
+class TestProofRoute:
+    def test_proof_endpoint_serves_proof_and_lifecycle(self):
+        import json
+
+        from protocol_tpu_torch.node.server import handle_request
+
+        mgr = _manager()
+        with ProvingPlane(
+            ProvingPlaneConfig(workers=0),
+            on_proved=lambda r: mgr.install_proof(r.epoch, r.pub_ins, r.proof),
+        ) as plane:
+            plane.submit(mgr.build_proof_job(Epoch(20)))
+            assert plane.drain(timeout=30)
+            status, body = handle_request("GET", "/proof/20", mgr, plane)
+            obj = json.loads(body)
+            assert status == 200 and obj["state"] == "proved"
+            assert obj["epoch"] == 20 and obj["proof"]
+            status, body = handle_request("GET", "/proof/latest", mgr, plane)
+            assert status == 200 and json.loads(body)["epoch"] == 20
+            status, body = handle_request("GET", "/proof/999", mgr, plane)
+            assert status == 404
+            status, _ = handle_request("GET", "/proof/abc", mgr, plane)
+            assert status == 400
+
+    def test_proof_endpoint_without_plane(self):
+        import json
+
+        from protocol_tpu_torch.node.server import handle_request
+
+        mgr = _manager()
+        mgr.calculate_proofs(Epoch(21))
+        status, body = handle_request("GET", "/proof/21", mgr)
+        assert status == 200 and json.loads(body)["state"] == "proved"
+        status, _ = handle_request("GET", "/proof/5", mgr)
+        assert status == 404
+
+    def test_proof_bodies_equal_the_references(self):
+        """The same statement proved through each package's plane: the
+        ``/proof`` bodies are equal but for the lifecycle's timings, and
+        the misses answer the same."""
+        import json
+
+        from protocol_tpu.node.epoch import Epoch as RefEpoch
+        from protocol_tpu.node.manager import Manager as RefManager
+        from protocol_tpu.node.manager import ManagerConfig as RefManagerConfig
+        from protocol_tpu.node.server import handle_request as ref_handle_request
+        from protocol_tpu.prover import ProvingPlane as RefProvingPlane
+        from protocol_tpu.prover import ProvingPlaneConfig as RefProvingPlaneConfig
+        from protocol_tpu_torch.node.server import handle_request
+
+        timings = ("prove_seconds", "lag_seconds", "submitted_unix", "finished_unix",
+                   "queue_seconds")
+        mgr = _manager()
+        ref = RefManager(RefManagerConfig(prover="commitment"))
+        ref.generate_initial_attestations()
+        bodies = {}
+        for name, m, Plane, Config, handle, epoch in (
+            ("port", mgr, ProvingPlane, ProvingPlaneConfig, handle_request, Epoch),
+            ("ref", ref, RefProvingPlane, RefProvingPlaneConfig, ref_handle_request, RefEpoch),
+        ):
+            with Plane(Config(workers=0),
+                       on_proved=lambda r, m=m: m.install_proof(r.epoch, r.pub_ins, r.proof)) as plane:
+                plane.submit(m.build_proof_job(epoch(20)))
+                assert plane.drain(timeout=30)
+                out = {}
+                for path in ("/proof/20", "/proof/latest", "/proof/999", "/proof/abc"):
+                    status, body = handle(path=path, method="GET", manager=m, plane=plane)
+                    if status == 200:
+                        body = {k: v for k, v in json.loads(body).items() if k not in timings}
+                    out[path] = (status, body)
+                bodies[name] = out
+        assert bodies["port"] == bodies["ref"]
+        assert bodies["port"]["/proof/20"][1]["state"] == "proved"
