@@ -88,10 +88,21 @@ wall-clock epoch loop (none failed or dropped, K1 and K5-K8 launched for
 exactly the ticks' iterations, a ``torch.profiler`` trace each), every
 ``GET`` route's status and latency, each landed proof verifying and the
 last equal to a CPU manager's prove of the same attestations, the
-converges equal to the CPU's; then ``python -m
-protocol_tpu_torch.node.server`` in a subprocess on the same checkpoint
-directory, serving the checkpointed proof and exiting on SIGTERM with
-its flight dump.
+converges equal to the CPU's, ``GET /aggregate`` over the last two
+landed epochs answering 200 with the accumulator ``accumulate`` folds
+from the same proofs and the fold statement over them synthesized and
+satisfied (``zk.agg_circuit``, ``challenge_bits=16``, not proved); then
+``python -m protocol_tpu_torch.node.server`` in a subprocess on the same
+checkpoint directory, serving the checkpointed proof and exiting on
+SIGTERM with its flight dump.  Last the pod (``pod``): 2 hosts, ranks
+sharing the card over gloo, each building the window plan of its own
+edges of the headline graph (``parallel.pod.PodWindowPlan``), a cold
+epoch and a 1 % churned one: the hosts' bits equal, the cold fixed
+point within L1 1e-5 of the single-card converge, each host's churned
+plan outcome the reference's rule, launches and all-reduces on the
+budgets; then ``python -m protocol_tpu_torch.parallel.dryrun_pod
+--device cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters,
+which must exit 0 with no acknowledged attestation lost.
 
 Every phase prints its JSON lines.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
@@ -103,7 +114,8 @@ K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on
 (``plonk_launches``), on the planes phase's converges and in its graft
 worker (``planes_launches``), on the server's ticks
 (``server_launches``), on each rank of the sharded headline
-converges by backend (``sharded_launches``), agreement with the plain version, its
+converges by backend (``sharded_launches``), on each pod host over its
+two headline epochs (``pod_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
 time the card could take).  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -1642,6 +1654,11 @@ def run_server_node(config, atts, reattestation, wrappers, check) -> dict:
                 status, headers, body, seconds = await http_request(port, "GET", path)
                 rec["routes"][template] = dict(status=status, ms=seconds * 1e3, bytes=len(body),
                                                content_type=headers.get("content-type"), body=body)
+            # /aggregate over the last two landed proofs (the loop is idle).
+            pair = sorted(e.number for e in node.manager.cached_proofs)[-2:]
+            status, _, body, seconds = await http_request(
+                port, "GET", "/aggregate?epochs=" + ",".join(map(str, pair)))
+            rec["aggregate"] = dict(epochs=pair, status=status, body=body, ms=seconds * 1e3)
             rec["tick_checkpoint_proofs"] = {}
             store = CheckpointStore(config.checkpoint_dir)
             for e in epochs:
@@ -1668,6 +1685,50 @@ def run_server_node(config, atts, reattestation, wrappers, check) -> dict:
     asyncio.run(scenario())
     rec["node"] = node
     return rec
+
+
+def aggregate_check(m, agg, check) -> dict:
+    """``GET /aggregate`` over two landed epochs, held to the host's own
+    aggregation: 200 with ``ok`` true, its accumulator byte for byte the
+    one ``accumulate`` folds from the same cached proofs, which
+    ``finalize`` accepts; then the fold statement over the same two
+    snarks (``prepare_fold``, ``challenge_bits=16``) synthesized,
+    checked with ``assert_satisfied`` and its accumulator finalized.  No
+    fold is proved.  Returns the route's latency and each step's
+    seconds."""
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.zk.agg_circuit import prepare_fold, synthesize_fold
+    from protocol_tpu_torch.zk.aggregator import Snark, accumulate, finalize
+
+    check(len(agg["epochs"]) == 2 and agg["status"] == 200,
+          f"server: /aggregate over {agg['epochs']} answered {agg['status']} {agg['body'][:200]!r}")
+    body = json.loads(agg["body"])
+    check(body["ok"] is True and body["epochs"] == agg["epochs"], f"server: /aggregate body {body}")
+    prover = m.prover
+    snarks = [Snark(prover.vk, m.get_proof(Epoch(e)).pub_ins, m.get_proof(Epoch(e)).proof,
+                    prover.TRANSCRIPT) for e in agg["epochs"]]
+    seconds = {}
+    t0 = time.perf_counter()
+    acc = accumulate(snarks)
+    seconds["accumulate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    final = acc is not None and finalize(acc, prover.vk)
+    seconds["finalize_s"] = time.perf_counter() - t0
+    check(final and acc.to_bytes().hex() == body["accumulator"],
+          "server: /aggregate's accumulator is not the one accumulate() folds from the same proofs")
+    t0 = time.perf_counter()
+    stmt = prepare_fold(snarks, challenge_bits=16)
+    seconds["prepare_fold_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs = synthesize_fold(stmt)
+    seconds["synthesize_fold_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cs.assert_satisfied()  # raises on an unsatisfied constraint
+    seconds["assert_satisfied_s"] = time.perf_counter() - t0
+    check(finalize(stmt.accumulator, prover.vk), "server: the fold statement's accumulator fails finalize")
+    return dict(epochs=agg["epochs"], status=agg["status"], route_ms=agg["ms"],
+                fold_rows=cs.n_rows, fold_k=(cs.n_rows - 1).bit_length(),
+                fold_public_inputs=len(stmt.public_inputs()), **seconds)
 
 
 def run_server_process(config_path, port, timeout_s) -> dict:
@@ -1850,6 +1911,8 @@ def server_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
                 for e in landed}
     check(landed and all(verified.values()), f"server: landed proofs verify {verified}")
     served = ProofRaw.from_json(r["routes"]["/proof/{last}"]["body"].decode()).to_proof()
+    aggregate = aggregate_check(m, r["aggregate"], check)
+    emit("server_aggregate", nvidia_smi=smi, **aggregate)
 
     # The same attestations on a CPU manager: the same epochs converge to
     # the same iterations and scores; the last epoch proves to the served bytes.
@@ -1942,7 +2005,7 @@ def server_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
         lag_epochs_after_drain=r["lag_epochs_after_drain"], drain_s=r["drain_s"],
         stop_s=r["stop_s"], landed=landed, proofs_verify=verified,
         tick_checkpoints_hold_proof=r["tick_checkpoint_proofs"],
-        card_vs_cpu=agree, cpu_prove_s=cpu_prove_s, launches=r["launches"],
+        card_vs_cpu=agree, cpu_prove_s=cpu_prove_s, launches=r["launches"], aggregate=aggregate,
         launches_match_budget=r["launches"] == want_launches,
         recheckpointed_epoch=last,
         entry_point=dict(boot_to_healthz_ok_s=p2["boot_to_healthz_ok_s"],
@@ -2127,6 +2190,186 @@ def sharded_phase(graph, single, check, emit, smi) -> dict:
     emit("sharded", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, headline=record,
          small=small_rec)
     return sharded_launches
+
+
+POD = dict(hosts=2, seed=7, timeout_s=600,
+           # POD_r01.json's parameters for the host-loss run.
+           chaos=["--hosts", "2", "--peers", "8192", "--edges", "65536", "--epochs", "4",
+                  "--churn", "0.01", "--tol", "1e-6", "--max-iter", "60", "--seed", "16",
+                  "--chaos-host-loss"], chaos_timeout_s=400)
+
+
+def pod_phase(pod_in, check, emit, smi) -> list:
+    """The pod on the card (``parallel.pod``): 2 hosts, each a rank
+    process on the one card, gloo all-reducing.
+
+    Part 1, the headline graph at full width: its cold epoch and its
+    first 1 % churned epoch (the ``epochs`` phase's graphs, handed to the
+    hosts through ``share_arrays`` in place of each deriving the same
+    stream), tol 1e-6, max 60.  Each host builds the plan of its own
+    edges only (``PodWindowPlan``).  Checks: both hosts hold the same
+    residuals and score digests; the cold scores within L1 1e-5 of the
+    ``epochs`` phase's single-card windowed converge of the same graph at
+    the same tol; each host's churned-epoch plan outcome the one the
+    reference's rule gives, evaluated here on this process's per-host
+    plans (reuse at an equal local fingerprint, else delta where the
+    host owns churned rows and ``try_plan_delta`` takes them, else
+    rebuild); per rank and epoch one all-reduce of 4n bytes a step and
+    K1, K5-K8 launched the budget times its iterations.  Printed: each
+    host's build seconds against the serial build of the whole graph
+    (the ``epochs`` phase's), ``plan_build_speedup``, a step's wall ms
+    split into the shard's kernels, the all-reduce and ``damp``, and
+    each rank's peak memory.
+
+    Part 2: ``python -m protocol_tpu_torch.parallel.dryrun_pod --device
+    cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters in a
+    subprocess: exit 0, zero acknowledged loss, a final fixed point
+    bit-identical to the control run.
+
+    Returns each rank's launches by wrapper over part 1's two epochs."""
+    import hashlib
+    import shutil
+
+    import numpy as np
+
+    from protocol_tpu_torch.ops import gather_window as gw
+    from protocol_tpu_torch.parallel import dryrun, dryrun_pod
+    from protocol_tpu_torch.parallel.launch import run_ranks, share_arrays
+    from protocol_tpu_torch.parallel.partition import HostPartition
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_pod"
+    shutil.rmtree(work, ignore_errors=True)
+    g0, rows, g1 = pod_in["graph"], pod_in["rows"], pod_in["churned"]
+    t0 = time.perf_counter()
+    paths = [share_arrays(work / name, dict(n=np.int64(g.n), src=g.src, dst=g.dst,
+                                            weight=g.weight, pre_trusted=g.pre_trusted))
+             for name, g in (("cold", g0), ("churned", g1))]
+    stage_seconds = time.perf_counter() - t0
+
+    # The reference's rule for the churned epoch, on this process's
+    # per-host plans (their builds timed back to back, as the reference's
+    # dry run times them).
+    hosts = POD["hosts"]
+    owner = HostPartition(hosts, seed=POD["seed"]).assign_ids(g0.n)
+    normalized = []
+    for g in (g0, g1):
+        gd = g.drop_self_edges()
+        normalized.append((gd, gd.row_normalized()[0]))
+    expected, host_build_seconds = [], []
+    for h in range(hosts):
+        local = [gw.partition_delta(hint, gd.src, gd.dst, w, owner, h)
+                 for hint, (gd, w) in zip((None, rows), normalized)]
+        _, s0, d0, w0 = local[0]
+        t0 = time.perf_counter()
+        plan_h = gw.build_window_plan(s0, d0, w0, n=g0.n)
+        host_build_seconds.append(time.perf_counter() - t0)
+        owned, s1, d1, w1 = local[1]
+        fp = gw.graph_fingerprint(g1.n, s1, d1, w1)
+        if fp == plan_h.fingerprint:
+            expected.append("reuse")
+        elif owned.size and gw.try_plan_delta(plan_h, s1, d1, w1, n=g1.n, rows=owned,
+                                              fingerprint=fp) is not None:
+            expected.append("delta")
+        else:
+            expected.append("rebuild")
+        del local, plan_h
+    del normalized
+    parent_seconds = time.perf_counter() - t0
+
+    # -- part 1: the headline pod ----------------------------------------------
+    t0 = time.perf_counter()
+    results = run_ranks(hosts, dryrun_pod.converge_pod_rank, paths, [None, rows], pod_in["kw"],
+                        POD["seed"], 20, backend="gloo", device="cuda", timeout_s=POD["timeout_s"])
+    launch_seconds = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    n = g0.n
+    epochs = []
+    for e in range(2):
+        recs = [r["epochs"][e] for r in results]
+        r0 = recs[0]
+        epochs.append({
+            "iterations": r0["iterations"], "residual": r0["residual"],
+            "plan_outcomes": [r["plan_outcome"] for r in recs],
+            "local_edges": [r["local_edges"] for r in recs],
+            "build_seconds": [r["build_seconds"] for r in recs],
+            "plan_seconds": [r["plan_seconds"] for r in recs],
+            "converge_seconds": [r["converge_seconds"] for r in recs],
+            "rows_per_shard": r0["rows_per_shard"], "s_max": r0["s_max"],
+            "runs": [r["runs"] for r in recs],
+            "launches": [r["launches"] for r in recs], "all_reduce": [r["all_reduce"] for r in recs],
+            "max_memory_allocated": [r["max_memory_allocated"] for r in recs],
+        })
+        check(len({(r["residual"], r["scores_sha256"]) for r in recs}) == 1
+              and all(r["scores"].tobytes() == r0["scores"].tobytes() for r in recs),
+              f"pod epoch {e}: the hosts' residuals or scores differ")
+        check(all(r["budget_findings"] == [] for r in recs),
+              f"pod epoch {e}: {[r['budget_findings'] for r in recs]}")
+        check(all(r["launches"]["gather_windowed"] == r["iterations"] > 0 for r in recs),
+              f"pod epoch {e}: K1 launches {[r['launches'] for r in recs]}")
+        check(bool(np.isfinite(r0["scores"]).all()) and abs(float(r0["scores"].sum()) - 1.0) < 1e-3,
+              f"pod epoch {e}: non-finite scores or a sum off 1")
+    cold = results[0]["epochs"][0]
+    l1 = float(np.abs(cold["scores"].astype(np.float64) - pod_in["single_scores"]).sum())
+    check(l1 <= 1e-5, f"pod cold epoch vs the single-card converge: L1 {l1} > 1e-5")
+    check(epochs[0]["plan_outcomes"] == ["rebuild"] * hosts,
+          f"pod cold epoch: plan outcomes {epochs[0]['plan_outcomes']}")
+    check(epochs[1]["plan_outcomes"] == expected,
+          f"pod churned epoch: plan outcomes {epochs[1]['plan_outcomes']}, the rule gives {expected}")
+    check(all(r["loaded_forbidden"] == [] for r in results), "pod: a host loaded jax or the reference")
+    check(sum(epochs[0]["local_edges"]) == g0.nnz - int((g0.src == g0.dst).sum()),
+          f"pod: the hosts hold {epochs[0]['local_edges']} edges of {g0.nnz}")
+    serial = pod_in["serial_plan_seconds"]
+    part1 = dict(
+        hosts=hosts, backend="gloo", peers=n, edges=g0.nnz, churned_rows=int(len(rows)),
+        l1_vs_single_card=l1, single_card_iterations=pod_in["single_iterations"],
+        single_card_seconds=pod_in["single_seconds"], expected_churned_outcomes=expected,
+        serial_plan_build_seconds=serial, host_build_seconds_in_parent=host_build_seconds,
+        plan_build_speedup=serial / max(epochs[0]["build_seconds"]),
+        plan_build_speedup_in_parent=serial / max(host_build_seconds),
+        epochs=epochs, step_wall_ms=[r["step_wall_ms"] for r in results],
+        stage_seconds=stage_seconds, parent_rule_seconds=parent_seconds,
+        launch_seconds=launch_seconds,
+        scores_sha256=[hashlib.sha256(r["epochs"][1]["scores"].tobytes()).hexdigest()
+                       for r in results],
+    )
+    emit("pod_headline", nvidia_smi=smi, **part1)
+    pod_launches = [
+        {k: sum(ep["launches"][k] for ep in r["epochs"]) for k in r["epochs"][0]["launches"]}
+        for r in results
+    ]
+    del results
+
+    # -- part 2: host loss and resume at POD_r01.json's parameters --------------
+    out = work / "pod_r01.json"
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "protocol_tpu_torch.parallel.dryrun_pod", "--device", "cuda",
+         *POD["chaos"], "--out", str(out)],
+        cwd=HERE, capture_output=True, text=True, timeout=POD["chaos_timeout_s"],
+    )
+    chaos_seconds = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"pod: the host-loss dry run exited {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    report = json.loads(out.read_text())
+    chaos = report["chaos"]
+    check(summary["ok"] and chaos["ok"] and chaos["crashed_as_planned"]
+          and all(x == [] for x in chaos["lost_acked"]) and chaos["fixed_point_matches_control"],
+          f"pod: the host-loss row failed: {summary}")
+    check(report["device"] == "cuda" and all(w["device"].startswith("cuda") for w in report["workers"]),
+          f"pod: the dry run's hosts ran on {[w['device'] for w in report['workers']]}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("pod", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, chaos_seconds=chaos_seconds,
+         chaos_summary=summary, chaos_recovery_seconds=chaos["recovery_seconds"],
+         chaos_crashed_host_recovery=chaos["crashed_host_recovery"],
+         dryrun_seconds=report["seconds"], dryrun_reference=report["reference"],
+         dryrun_epochs=[{k: ep[k] for k in ("epoch", "seconds", "plan_update_seconds",
+                                              "converge_seconds", "iterations", "plan_outcome",
+                                              "local_plan_build_seconds", "local_edges")}
+                        for ep in report["workers"][0]["epochs"]])
+    return pod_launches
 
 
 def main() -> None:
@@ -2961,15 +3204,23 @@ def main() -> None:
     per_epoch = []
     cohort, deg = churn_cohort_dims(cur, 0.01)
     ep_scores = None
+    # The pod phase (last) takes the cold graph, the first churned epoch and
+    # the cold single-card fixed point from here.
+    pod_in = dict(graph=cur, serial_plan_seconds=epoch_plan_seconds, kw=kw6)
     for epoch in range(3):
         if epoch:
             rows, cur, _ = sender_centric_churn(rng, cur, cohort_size=cohort, deg=deg)
             b.delta_rows = rows
+            if epoch == 1:
+                pod_in.update(rows=rows, churned=cur)
         before = dict(b.plan_outcomes)
         t0 = time.perf_counter()
         res = b.converge(cur, t0=ep_scores, **kw6)
         dt = time.perf_counter() - t0
         outcome = [k for k in b.plan_outcomes if b.plan_outcomes[k] != before[k]]
+        if epoch == 0:
+            pod_in.update(single_scores=res.scores, single_iterations=res.iterations,
+                          single_seconds=dt)
         ep_scores = res.scores
         per_epoch.append(
             {"epoch": epoch, "seconds": dt, "iterations": res.iterations, "plan": outcome}
@@ -3123,6 +3374,10 @@ def main() -> None:
     # -- 13. server: the node daemon over the card converge and the planes -
     server_launches = server_phase(plonk_ctx, wrappers, check, emit, smi)
 
+    # -- 14. pod: 2 hosts over per-host plans, then host loss and resume ----
+    pod_launches = pod_phase(pod_in, check, emit, smi)
+    del pod_in
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -3171,6 +3426,7 @@ def main() -> None:
         entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
         entry["planes_launches"] = planes_launches.get(wrapper, 0)
         entry["server_launches"] = server_launches.get(wrapper, 0)
+        entry["pod_launches"] = [ranks.get(wrapper, 0) for ranks in pod_launches]
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()
         }

@@ -8,7 +8,8 @@ commitment and PLONK proofs), ``EpochPipeline`` (host and device stages
 overlapped), ``CheckpointStore``, ``AttestationWAL``, ``ProtocolConfig``
 (``config``), the chain event sources (``ethereum``) and the daemon
 (``server``: ``python -m protocol_tpu_torch.node.server --config
-<file>``).  The pod (``node/pod.py``) is not ported yet.
+<file>``) and the pod's durability plane (``pod``: per-host WAL and
+checkpoint shards bound by sealed pod manifests).
 """
 
 from .attestation import Attestation, AttestationData  # noqa: F401

@@ -18,11 +18,9 @@ rebuild of server/src/manager/mod.rs:72-237), on the port's backends:
   (``prover="plonk"``, ``check_circuit=True``) the epoch statement is
   checked at the constraint level, then proved with a KZG PLONK proof
   on the host (``zk.proof.PlonkEpochProver``), byte-identical to the
-  reference package's at the same statement and SRS.
-
-Not ported yet: the proof aggregation (``aggregate_proofs`` validates
-its request as the reference does, then raises ``NotImplementedError``,
-ROADMAP A5c (i-b)).
+  reference package's at the same statement and SRS;
+- ``aggregate_proofs`` folds cached epoch proofs into one KZG
+  accumulator and its one pairing check (``zk.aggregator``).
 """
 
 from __future__ import annotations
@@ -65,9 +63,6 @@ chaos.declare("prover.pre_enqueue", "the epoch proof about to be computed or enq
 #: at a 10 s cadence.  Older proofs stay durable in checkpoints; the
 #: serving cache must not grow with uptime.
 PROOF_CACHE_EPOCHS = 64
-
-#: Where the proof aggregation stands: not ported yet.
-NOT_PORTED = "ROADMAP A5c (i-b) (zk/{aggregator,agg_circuit,wrong_field})"
 
 #: Epochs of ConvergenceResult (full f32[N] fixed point each) kept for
 #: inspection — same ring discipline as ``EpochPipeline.outcomes``.
@@ -968,23 +963,38 @@ class Manager:
         return self.cached_proofs[max(self.cached_proofs, key=lambda e: e.number)]
 
     def aggregate_proofs(self, epochs: list[Epoch]):
-        """Batch-verify cached epoch SNARKs with one pairing check (the
-        reference's ``zk.aggregator`` accumulation).  The reference's
-        cheap validation runs first and raises its ``EigenError``s (not
-        the plonk prover, a proof not cached, the prover still warming
-        up), so ``GET /aggregate`` answers those 400s as the reference
-        does; the accumulation itself is not ported yet and raises."""
+        """Batch-verify cached epoch SNARKs with one pairing check
+        (``zk.aggregator``): fold every requested epoch's proof into a
+        KZG accumulator and finalize it.  Returns ``(ok, accumulator)``.
+
+        Requires the PLONK prover (commitment proofs have no pairing
+        structure)."""
+        from ..zk.aggregator import Snark, accumulate, finalize
+
         from .errors import EigenErrorCode
 
+        # Cheap validation first: the config string and the proof cache
+        # — never trigger a lazy keygen (or wait on the boot warm-up)
+        # for a request that would fail anyway.
         if self.config.prover != "plonk":
             raise EigenError(
                 EigenErrorCode.VERIFICATION_ERROR,
                 "aggregation requires the plonk prover",
             )
-        for epoch in epochs:
-            self.get_proof(epoch)
+        proofs = [self.get_proof(epoch) for epoch in epochs]
         if self._prover is None:
             raise EigenError(EigenErrorCode.PROVING_ERROR, "prover still warming up")
-        raise NotImplementedError(
-            f"proof aggregation is not ported to protocol_tpu_torch yet ({NOT_PORTED})"
-        )
+        prover = self.prover
+        snarks = [
+            Snark(
+                vk=prover.vk,
+                instances=proof.pub_ins,
+                proof=proof.proof,
+                transcript=prover.TRANSCRIPT,
+            )
+            for proof in proofs
+        ]
+        acc = accumulate(snarks)
+        if acc is None:
+            return False, None
+        return finalize(acc, prover.vk), acc

@@ -21,8 +21,8 @@ snapshots ride (obs/fleet.py):
   four epoch phases, and the pre-collective barrier-arrival spread
   (``eigentrust_pod_barrier_wait_seconds``) from the clock-aligned
   arrival stamps a pod's plan build records ahead of its
-  dimension-agreement collective (the reference's
-  ``parallel.pod.PodWindowPlan.build``; the port's pod is ROADMAP A7).  Both feed the pod SLOs
+  dimension-agreement collective (``parallel.pod.PodWindowPlan.build``).
+  Both feed the pod SLOs
   (obs/slo.py) and the :class:`~.watchers.StragglerWatcher`.
 
 Clock model: within one host, ``unix ~= monotonic + offset`` with the

@@ -213,24 +213,7 @@ def step_rank(mesh: ShardGroup, graph, kernels=tuple(SHARDED_KERNELS), plan=None
             ),
         }
 
-        def timed(fn):
-            times = []
-            for _ in range(steps):
-                _sync(mesh)
-                dist.barrier(group=mesh.group)
-                t0 = time.perf_counter()
-                fn()
-                _sync(mesh)
-                times.append((time.perf_counter() - t0) * 1e3)
-            return statistics.median(times)
-
-        ct = kernel_part.clone()
-        wall = {
-            "step": timed(lambda: step(problem.partial_ct)),
-            "partial_ct": timed(lambda: problem.partial_ct(t)),
-            "all_reduce": timed(lambda: all_reduce_sum(ct, mesh)),
-            "damp": timed(lambda: sp.damp(ct, t, problem.p, problem.dangling, alpha)),
-        }
+        wall = step_wall_ms(mesh, problem, t, alpha, steps)
         device_ms = split = None
         if trace and mesh.rank == 0 and mesh.device.type == "cuda":
             step(problem.partial_ct)
@@ -255,8 +238,39 @@ def step_rank(mesh: ShardGroup, graph, kernels=tuple(SHARDED_KERNELS), plan=None
             "runs": int(problem.seg_end.shape[0]) if kernel == "cuda-windowed" else None,
             "edges": int(problem.src.shape[0]) if kernel == "cuda-csr" else None,
         }
-        del problem, kernel_part, plain_part, ct
+        del problem, kernel_part, plain_part
     return out
+
+
+def step_wall_ms(mesh: ShardGroup, problem, t: torch.Tensor, alpha: torch.Tensor,
+                 steps: int) -> dict:
+    """The median wall ms over ``steps`` runs of a whole sharded step of
+    ``problem`` at ``t`` and of its three parts: the shard's partial
+    ``Cᵀt``, the all-reduce (with gloo's copies) and ``damp``, each
+    timed between a device synchronisation and a group barrier."""
+
+    def timed(fn):
+        times = []
+        for _ in range(steps):
+            _sync(mesh)
+            dist.barrier(group=mesh.group)
+            t0 = time.perf_counter()
+            fn()
+            _sync(mesh)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def step():
+        ct = all_reduce_sum(problem.partial_ct(t), mesh)
+        return sp.damp(ct, t, problem.p, problem.dangling, alpha)
+
+    ct = problem.partial_ct(t)
+    return {
+        "step": timed(step),
+        "partial_ct": timed(lambda: problem.partial_ct(t)),
+        "all_reduce": timed(lambda: all_reduce_sum(ct, mesh)),
+        "damp": timed(lambda: sp.damp(ct, t, problem.p, problem.dangling, alpha)),
+    }
 
 
 def jobs_rank(mesh: ShardGroup, jobs) -> list:

@@ -232,6 +232,31 @@ def _resolve_plan(
     return build_window_plan(g.src, g.dst, g.weight, n=g.n), "rebuild"
 
 
+def _shard_on(mesh: ShardGroup, parts: dict, k: int) -> dict:
+    """Shard ``k`` of ``_partition_plan_arrays``' tables on the rank's
+    device, as ``ShardedWindowPlan`` fields: its plan rows and its live
+    runs.  A shard with no live run keeps its first pad run (end 0,
+    partial 0, beyond every destination), so every rank runs the same
+    kernels a step."""
+    rps = parts["rows_per_shard"]
+    rows = slice(k * rps * 8, (k + 1) * rps * 8)
+    runs = slice(0, max(int(parts["dst_ptr"][k, -1]), 1))
+    seg_end = _on(mesh, parts["seg_end"][k, runs])
+    seg_first = _on(mesh, parts["seg_first"][k, runs])
+    return dict(
+        mesh=mesh,
+        rows_per_shard=rps,
+        wid=_on(mesh, parts["wid"][k * rps:(k + 1) * rps]),
+        local=_on(mesh, parts["local"][rows]),
+        weight=_on(mesh, parts["weight"][rows]),
+        seg_end=seg_end,
+        seg_first=seg_first,
+        seg_perm=_on(mesh, parts["seg_perm"][k, runs]),
+        dst_ptr=_on(mesh, parts["dst_ptr"][k]),
+        run_ptr=row_run_ptr(seg_end, seg_first, rps),
+    )
+
+
 @dataclass
 class ShardedWindowPlan:
     """One rank's slice of the window plan: the ``cuda-windowed`` kernel
@@ -276,27 +301,10 @@ class ShardedWindowPlan:
         g, dangling = _normalized(graph)
         plan, outcome = _resolve_plan(g, plan, delta_rows)
         parts = _partition_plan_arrays(plan, mesh.size)
-        k, rps = mesh.rank, parts["rows_per_shard"]
-        rows = slice(k * rps * 8, (k + 1) * rps * 8)
-        # The live runs; a shard with none keeps its first pad run (end 0,
-        # partial 0, beyond every destination), so every rank runs the
-        # same kernels a step.
-        runs = slice(0, max(int(parts["dst_ptr"][k, -1]), 1))
-        seg_end = _on(mesh, parts["seg_end"][k, runs])
-        seg_first = _on(mesh, parts["seg_first"][k, runs])
         return cls(
-            mesh=mesh,
+            **_shard_on(mesh, parts, mesh.rank),
             n=plan.n,
-            rows_per_shard=rps,
             table_entries=plan.table_entries,
-            wid=_on(mesh, parts["wid"][k * rps:(k + 1) * rps]),
-            local=_on(mesh, parts["local"][rows]),
-            weight=_on(mesh, parts["weight"][rows]),
-            seg_end=seg_end,
-            seg_first=seg_first,
-            seg_perm=_on(mesh, parts["seg_perm"][k, runs]),
-            dst_ptr=_on(mesh, parts["dst_ptr"][k]),
-            run_ptr=row_run_ptr(seg_end, seg_first, rps),
             p=_on(mesh, graph.pre_trust_vector()),
             dangling=_on(mesh, dangling.astype(np.float32)),
             plan=plan,

@@ -3,9 +3,11 @@
 (``kzg``) over Bn254 (``bn254``, ``fields``), the PLONK engine
 (``plonk``) with its Fiat-Shamir transcripts (``transcript``) and its
 native runtime (``native``), the proving-kernel backend knob
-(``graft``), and the ``Proof``/``ProofRaw`` wire types with the PLONK
-and Poseidon commitment provers (``proof``).  Proof aggregation and
-the EVM verifier are not ported yet (ROADMAP A5c (i-b), A12)."""
+(``graft``), the ``Proof``/``ProofRaw`` wire types with the PLONK
+and Poseidon commitment provers (``proof``), and proof aggregation: the
+native KZG accumulation (``aggregator``) and its in-circuit fold
+(``agg_circuit`` over the emulated-Fq chips of ``wrong_field``).  The
+EVM verifier is not ported yet (ROADMAP A12)."""
 
 from .circuit import EigenTrustCircuit, prove_epoch_statement  # noqa: F401
 from .cs import ConstraintSystem  # noqa: F401

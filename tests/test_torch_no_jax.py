@@ -79,7 +79,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "zk.kzg", "zk.plonk", "obs.export", "obs.fleet", "ingest.dedup",
                 "ingest.ratelimit", "ingest.workers", "ingest.plane", "prover.workers",
                 "prover.plane", "node.config", "node.ethereum", "node.server", "obs.slo",
-                "obs.podtrace", "crypto.merkle"):
+                "obs.podtrace", "crypto.merkle", "zk.wrong_field", "zk.aggregator",
+                "zk.agg_circuit", "parallel.pod", "parallel.dryrun_pod", "node.pod"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -91,6 +92,32 @@ def test_a_spawned_rank_loads_neither_jax_nor_the_reference():
 
     assert "jax" in sys.modules
     assert run_ranks(2, loaded_modules, backend="gloo", device="cpu", timeout_s=60) == [[], []]
+
+
+def test_spawned_pod_hosts_load_neither_jax_nor_the_reference(tmp_path):
+    """Two pod hosts of ``parallel.dryrun_pod``, spawned from this process
+    (which has jax loaded), each after two epochs of the smoke stream
+    (plan, converge, WAL, checkpoint, seal, trace stitch), hold neither
+    ``jax``, ``jaxlib`` nor ``protocol_tpu``."""
+    from protocol_tpu_torch.parallel import dryrun_pod
+    from protocol_tpu_torch.parallel.launch import run_ranks
+
+    assert "jax" in sys.modules
+    params = dict(peers=512, edges=4096, epochs=2, churn=0.01, seed=16, tol=1e-6, max_iter=60,
+                  seal_timeout=60.0)
+    reports = run_ranks(2, dryrun_pod.worker_rank, params, str(tmp_path), backend="gloo",
+                        device="cpu", timeout_s=120)
+    assert [r["loaded_forbidden"] for r in reports] == [[], []]
+    assert all(r["ok"] for r in reports)
+
+
+def test_pod_dryrun_raises_without_a_card(no_cuda):
+    """``--device`` unset means the card: the dry run raises where there
+    is none, before it starts a host."""
+    from protocol_tpu_torch.parallel import dryrun_pod
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun_pod.main(["--smoke"])
 
 
 def test_spawned_plane_workers_load_neither_jax_nor_the_reference():

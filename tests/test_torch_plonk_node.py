@@ -5,8 +5,9 @@ converges its open graph on ``cuda-windowed`` (``device="cpu"``), checks
 the epoch statement and proves it, and its proof is byte-identical to
 the reference node's; each package verifies the other's proof, and a
 checkpoint either package saves with its PLONK proof recovers in the
-other, where the proof verifies.  What is not ported raises naming its
-ROADMAP item; ``zk_backend="graft"`` proves on the node's device."""
+other, where the proof verifies; both nodes aggregate the proof to the
+same accumulator.  What is not ported raises naming its ROADMAP item;
+``zk_backend="graft"`` proves on the node's device."""
 
 import pathlib
 
@@ -153,9 +154,14 @@ class TestCheckpointCrossLoad:
 
 class TestNotPorted:
     def test_aggregation_raises_naming_its_item(self, epoch_proofs):
-        m = epoch_proofs[0]
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A5c \(i-b\)"):
-            m.aggregate_proofs([Epoch(1)])
+        """Aggregation is ported (ROADMAP A5c (i-b)): the node folds its
+        cached proof into the reference node's accumulator, byte for
+        byte, and the accumulator passes its pairing check."""
+        m, _, ref, _ = epoch_proofs
+        ok, acc = m.aggregate_proofs([Epoch(1)])
+        ref_ok, ref_acc = ref.aggregate_proofs([RefEpoch(1)])
+        assert ok and ref_ok
+        assert acc.to_bytes() == ref_acc.to_bytes()
 
     def test_verifier_artifact_raises_naming_a12(self, provers):
         with pytest.raises(NotImplementedError, match="ROADMAP A12"):

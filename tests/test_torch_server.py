@@ -544,11 +544,41 @@ class TestConfigDevice:
             Node.from_config(cfg)
 
 
+class _SmallPlonkProver:
+    """The piece of a PLONK prover that aggregation reads: a ``vk`` and
+    its transcript, here of the one-gate statement ``3·4 + 5 = 17`` on a
+    small seeded setup, and ``prove(seed)``, a proof of it."""
+
+    TRANSCRIPT = "poseidon"
+
+    def __init__(self):
+        from protocol_tpu_torch.zk import plonk
+        from protocol_tpu_torch.zk.kzg import Setup
+
+        self._plonk = plonk
+        self._pk = plonk.compile_circuit(self._circuit(), srs=Setup.generate(6, seed=b"agg"))
+        self.vk = self._pk.vk
+
+    @staticmethod
+    def _circuit():
+        from protocol_tpu_torch.zk.cs import ConstraintSystem
+        from protocol_tpu_torch.zk.gadgets import StdGate
+
+        cs = ConstraintSystem()
+        std = StdGate(cs)
+        out = std.add(std.mul(std.witness(3), std.witness(4)), std.witness(5))
+        cs.copy(cs.assign(cs.column("instance", "instance"), 0, 17), out)
+        return cs
+
+    def prove(self, seed: bytes) -> bytes:
+        return self._plonk.prove(self._pk, self._circuit(), [17], seed=seed,
+                                 transcript=self.TRANSCRIPT)
+
+
 class TestAggregateRoute:
-    """``/aggregate`` keeps the reference's handling: the bad queries
-    answer its 400s; past the reference's validation the port's
-    ``aggregate_proofs`` raises (aggregation is not ported) and nothing
-    turns that into an answer."""
+    """``/aggregate`` answers as the reference's does: the bad queries
+    its 400s, cached PLONK proofs a 200 body with the folded
+    accumulator."""
 
     def test_bad_queries_answer_the_references_400s(self):
         mgr = Manager(ManagerConfig(prover="commitment"))
@@ -577,6 +607,38 @@ class TestAggregateRoute:
         status, headers, body = asyncio.run(scenario())
         assert (status, body) == (400, b"InvalidQuery")
         assert headers["content-type"] == "application/json"
+
+    def test_cached_plonk_proofs_answer_200_over_the_socket(self):
+        """Two cached proofs fold into the accumulator ``accumulate``
+        gives on the same proofs, served with ``ok`` true; a tampered
+        member answers 200 with ``ok`` false, as the reference does."""
+        from protocol_tpu_torch.zk.aggregator import Snark, accumulate
+        from protocol_tpu_torch.zk.proof import Proof
+
+        prover = _SmallPlonkProver()
+        mgr = Manager(ManagerConfig(prover="plonk", device="cpu"), prover=prover)
+        for n, seed in ((3, b"m0"), (7, b"m1")):
+            mgr.cached_proofs[Epoch(n)] = Proof(pub_ins=[17], proof=prover.prove(seed))
+
+        async def scenario(path):
+            node = Node(config=node_config(prover="plonk", ingest_plane=False), manager=mgr)
+            await node.start()
+            response = await request(port_of(node), "GET", path)
+            await node.stop()
+            return response
+
+        acc = accumulate([Snark(prover.vk, [17], mgr.cached_proofs[Epoch(n)].proof, "poseidon")
+                          for n in (3, 7)])
+        status, headers, body = asyncio.run(scenario("/aggregate?epochs=3,7"))
+        assert status == 200 and headers["content-type"] == "application/json"
+        assert json.loads(body) == {"ok": True, "epochs": [3, 7],
+                                    "accumulator": acc.to_bytes().hex()}
+        good = mgr.cached_proofs[Epoch(7)]
+        bad = bytearray(good.proof)
+        bad[11] ^= 1
+        mgr.cached_proofs[Epoch(7)] = Proof(pub_ins=good.pub_ins, proof=bytes(bad))
+        status, _, body = asyncio.run(scenario("/aggregate?epochs=3,7"))
+        assert status == 200 and json.loads(body)["ok"] is False
 
 
 class TestBootOrder:

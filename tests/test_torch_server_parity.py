@@ -17,9 +17,8 @@ socket:
 
 The same under ``prover="plonk"`` (the 2-peer statement on
 ``data/srs-15.bin``, keys from the disk cache), where ``/aggregate`` over
-the proved epochs shows the one difference: the reference aggregates,
-the port's ``aggregate_proofs`` raises (not ported) and the socket is
-closed with no answer.  Last, ``ProtocolConfig.load`` of the committed
+the proved epochs answers the same 200 body in both packages, directly
+and over the socket.  Last, ``ProtocolConfig.load`` of the committed
 config equals the reference's field for field.
 """
 
@@ -248,6 +247,8 @@ class TestCommitmentNodes:
 
 class TestPlonkNodes:
     def test_plonk_surfaces_equal_and_aggregate_is_the_one_difference(self, tmp_path):
+        """Every PLONK surface, ``/aggregate`` included, answers as the
+        reference's does."""
         reset_globals()
         group = dict(num_neighbours=2, num_iter=1, fixed_set=list(FIXED_SET[:2]))
         fixture = write_fixture(tmp_path / "events.jsonl", FIXED_SET[:2], ROWS2)
@@ -279,10 +280,12 @@ class TestPlonkNodes:
         from protocol_tpu.node.server import handle_request as ref_handle_request
         from protocol_tpu_torch.node.server import handle_request
 
+        # /aggregate: the same accumulator, byte for byte, in the same body.
         status, body = ref_handle_request("GET", "/aggregate?epochs=1,2", theirs.manager)
         assert status == 200 and json.loads(body)["ok"] is True
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A5c \(i-b\)"):
-            handle_request("GET", "/aggregate?epochs=1,2", ours.manager)
+        assert handle_request("GET", "/aggregate?epochs=1,2", ours.manager) == (status, body)
+        ok, acc = ours.manager.aggregate_proofs([Epoch(1), Epoch(2)])
+        assert ok and acc.to_bytes().hex() == json.loads(body)["accumulator"]
 
         async def over_the_socket():
             node = Node(config=ProtocolConfig(epoch_interval=3600, endpoint=LOCAL,
@@ -296,7 +299,7 @@ class TestPlonkNodes:
             return got, still
 
         got, still = asyncio.run(over_the_socket())
-        assert got == (None, {}, b""), got
+        assert (got[0], got[2]) == (200, body.encode()), got
         assert still[0] == 200 and still[2] == out["/score"][0][2]
 
 
