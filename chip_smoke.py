@@ -94,7 +94,21 @@ from the same proofs and the fold statement over them synthesized and
 satisfied (``zk.agg_circuit``, ``challenge_bits=16``, not proved); then
 ``python -m protocol_tpu_torch.node.server`` in a subprocess on the same
 checkpoint directory, serving the checkpointed proof and exiting on
-SIGTERM with its flight dump.  Last the pod (``pod``): 2 hosts, ranks
+SIGTERM with its flight dump.  Then the client (``client``): the
+reference's whole user flow around the port's node on the card.  The
+plonk phase's prover generates the EVM verifier (one sample prove, then
+codegen), which must be the committed ``data/et_verifier.bin``; a port
+``DevChain`` takes the AttestationStation, that verifier and the
+wrapper; each bootstrap identity's ``EigenTrustClient`` attests its
+plonk cell row on it; a default node (``cuda-windowed``, no ``device``,
+the PLONK prover, a synchronous prove) replays the chain through
+``ChainEventSource`` and ticks one epoch by hand, K1 and K5-K8 launched
+exactly its iterations and nothing else; the client fetches ``/score``
+and verifies it on-chain through the wrapper (``Verified`` logged, a
+flipped public input refused), the bytes equal a CPU manager's prove and
+verify on the committed artifact; ``python -m
+protocol_tpu_torch.client.cli`` ``show`` and ``verify`` exit 0 against
+the node.  Last the pod (``pod``): 2 hosts, ranks
 sharing the card over gloo, each building the window plan of its own
 edges of the headline graph (``parallel.pod.PodWindowPlan``), a cold
 epoch and a 1 % churned one: the hosts' bits equal, the cold fixed
@@ -113,7 +127,8 @@ K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on
 (``node_launches``), on the PLONK node's card converges
 (``plonk_launches``), on the planes phase's converges and in its graft
 worker (``planes_launches``), on the server's ticks
-(``server_launches``), on each rank of the sharded headline
+(``server_launches``), on the client phase's tick (``client_launches``),
+on each rank of the sharded headline
 converges by backend (``sharded_launches``), on each pod host over its
 two headline epochs (``pod_launches``), agreement with the plain version, its
 time, the plain version's and the library call's times and the least
@@ -590,7 +605,7 @@ def plonk_phase(wrappers, check, emit, smi) -> tuple[dict, dict]:
     check(total == 5 * 1000, f"plonk: public scores sum to {total} in the field, not 5000")
     emit("plonk", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
     # The key cache stays for the planes phase's prover workers and the
-    # server phase's node, which removes it.
+    # server and client phases' nodes; the client phase removes it.
     return totals, dict(prover=prover, atts=atts, config=config, card=card, trust_wrappers=wrappers,
                         keys=keys)
 
@@ -2016,11 +2031,271 @@ def server_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
             score_status=p_tick["/score"]["status"], score_ms=p_tick["/score"]["ms"],
             exit_code=p_tick["exit_code"], sigterm_to_exit_s=p_tick["sigterm_to_exit_s"]),
     )
+    # The key cache stays for the client phase's node, which removes it.
     os.environ.pop(CACHE_ENV, None)
-    shutil.rmtree(plonk_ctx["keys"].parent, ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     emit("server", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, **rec)
     return r["launches"]
+
+
+CLIENT = dict(
+    # The reference's client flow around the default node (the bootstrap
+    # group of 5, k = 14 on data/srs-15.bin): one epoch, ticked by hand.
+    epoch=0, wait_s=120.0, cli_timeout_s=300.0,
+)
+
+
+def run_cli(args, timeout_s) -> dict:
+    """``python -m protocol_tpu_torch.client.cli <args>`` from the checkout:
+    its exit code, stdout tail, stderr tail and seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "protocol_tpu_torch.client.cli", *args], cwd=HERE,
+                         capture_output=True, text=True, timeout=timeout_s)
+    return dict(args=args[2:], exit_code=out.returncode, stdout=out.stdout[-2000:],
+                stderr=out.stderr[-2000:], seconds=time.perf_counter() - t0)
+
+
+def client_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
+    """The reference's whole user flow, with the port's node on the card.
+
+    1. The verifier: ``generate_verifier_artifact()`` on the plonk phase's
+       prover (one sample prove, then codegen), its runtime and ``n_t``
+       those of the committed ``data/et_verifier.bin``; the sample proof
+       verifies on ``evm_verify`` and a wrong public input is refused.
+    2. A port ``DevChain`` with the AttestationStation, the generated
+       verifier and ``et_wrapper_runtime`` in front of it.
+    3. Each bootstrap identity's ``EigenTrustClient`` attests its plonk
+       cell row through a ``DevChainBackend``.
+    4. A port ``Node.from_config`` (the default PLONK prover on
+       ``data/srs-15.bin``, circuit check on, ``cuda-windowed``, ``device``
+       unset: the card; synchronous prover; a clock of 3600 s, its loop
+       cancelled) replays the chain through ``ChainEventSource``; once its
+       5 rows are the chain's, every wrapper's count is set to 0 and
+       ``Node._epoch_tick`` runs one epoch: the prove, then the converge.
+    5. K1 and K5-K8 launched exactly the epoch's iterations (the backend's
+       budget), K9-K13 and the probes' kernels not at all.
+    6. ``fetch_proof`` reads ``/score`` over loopback; ``verify`` in chain
+       mode is ``True`` with a ``Verified`` log from the dev account, a
+       flipped public-input byte ``False``; the served bytes equal a CPU
+       ``Manager``'s prove of the chain's attestations at that epoch, and
+       verify on the committed ``data/et_verifier.bin`` too.
+    7. ``python -m protocol_tpu_torch.client.cli`` ``show`` and ``verify``
+       (no wrapper, the generated artifact) in subprocesses, against the
+       node, each exiting 0, ``verify`` printing "Successful verification!".
+
+    Returns each wrapper's launches over the tick."""
+    import asyncio
+    import dataclasses
+    import shutil
+
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.client.client import ClientConfig, DevChainBackend, EigenTrustClient
+    from protocol_tpu_torch.crypto import field
+    from protocol_tpu_torch.evm.devchain import VERIFIED_TOPIC, DevChain, et_wrapper_runtime
+    from protocol_tpu_torch.node.attestation import AttestationData
+    from protocol_tpu_torch.node.bootstrap import read_bootstrap_csv
+    from protocol_tpu_torch.node.config import ProtocolConfig
+    from protocol_tpu_torch.node.epoch import Epoch
+    from protocol_tpu_torch.node.ethereum import ChainEventSource, DevChainRpc
+    from protocol_tpu_torch.node.manager import Manager, ManagerConfig
+    from protocol_tpu_torch.node.server import Node
+    from protocol_tpu_torch.obs import TIMELINE
+    from protocol_tpu_torch.zk.evm_verifier import (
+        GeneratedVerifier,
+        evm_verify,
+        generate_evm_verifier,
+    )
+    from protocol_tpu_torch.zk.proof import CACHE_ENV, ProofRaw
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_client"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    os.environ[CACHE_ENV] = str(plonk_ctx["keys"])
+    prover = plonk_ctx["prover"]
+    data = HERE / "data"
+    srs = str(HERE / PLONK["srs"])
+    committed_blob = (data / "et_verifier.bin").read_bytes()
+    committed = GeneratedVerifier.from_bytes(committed_blob)
+    rec: dict = dict(evm_verify={})
+
+    def timed_verify(name, gen, pub_ins, proof):
+        t0 = time.perf_counter()
+        ok, gas = evm_verify(gen, pub_ins, proof)
+        rec["evm_verify"][name] = dict(ok=ok, gas=gas, seconds=time.perf_counter() - t0)
+        return ok
+
+    # -- 1. the verifier artifact --------------------------------------------
+    t0 = time.perf_counter()
+    gen, sample_pub, sample = prover.generate_verifier_artifact()
+    rec["artifact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = generate_evm_verifier(prover.vk, gen.n_t, len(sample_pub))
+    rec["codegen_s"] = time.perf_counter() - t0
+    rec["artifact"] = dict(runtime_bytes=len(gen.runtime), n_t=gen.n_t, calldata_len=gen.calldata_len,
+                           equals_committed=gen.to_bytes() == committed_blob)
+    check(gen.runtime == committed.runtime and gen.n_t == committed.n_t and again.runtime == gen.runtime,
+          f"client: the generated verifier is not data/et_verifier.bin: {rec['artifact']}")
+    check(prover.verify(sample_pub, sample), "client: the artifact's sample proof does not verify")
+    check(timed_verify("sample", gen, sample_pub, sample), "client: the sample proof fails evm_verify")
+    bad_pub = [(sample_pub[0] + 1) % field.MODULUS] + list(sample_pub[1:])
+    check(not timed_verify("sample_wrong_input", gen, bad_pub, sample),
+          "client: evm_verify accepted a wrong public input")
+    (work / "et_verifier.bin").write_bytes(gen.to_bytes())
+
+    # -- 2. deploy; 3. attest --------------------------------------------------
+    chain = DevChain()
+    receipts = []  # every transaction's receipt: the backend returns only the verdict
+
+    def recorded(to, data, sender, transact=chain.transact):
+        receipts.append(transact(to, data, sender))
+        return receipts[-1]
+
+    chain.transact = recorded
+    station = f"0x{chain.deploy_attestation_station():040x}"
+    verifier = chain.deploy_runtime(gen.runtime)
+    wrapper = f"0x{chain.deploy_runtime(et_wrapper_runtime(verifier)):040x}"
+    nodes = read_bootstrap_csv(data / "bootstrap-nodes.csv")
+    fixed_set, atts, _ = node_group(5, NODE["seed"])
+    check([(n.sk0, n.sk1) for n in nodes] == list(fixed_set),
+          "client: data/bootstrap-nodes.csv is not the bootstrap group")
+    base = ClientConfig.load(data / "client-config.json")
+    clients = []
+    t0 = time.perf_counter()
+    for n, att in zip(nodes, atts):
+        cfg = dataclasses.replace(base, secret_key=(n.sk0, n.sk1), ops=list(att.scores),
+                                  as_address=station, et_verifier_wrapper_address=wrapper)
+        clients.append(EigenTrustClient(cfg, nodes, chain=DevChainBackend(chain)))
+        sent = clients[-1].attest()
+        check(sent.val == AttestationData.from_attestation(att).to_bytes(),
+              f"client: {n.name}'s attestation is not the plonk cell's row")
+    rec["attest_s"] = time.perf_counter() - t0
+    rec["chain_after_attest"] = dict(block=chain.block_number, logs=len(chain.logs))
+    rows = sorted(tuple(a.scores) for a in atts)
+
+    # -- 4. the node on the card: replay, then one epoch -----------------------
+    port = free_port()
+    node = Node.from_config(ProtocolConfig(
+        epoch_interval=3600, endpoint=((127, 0, 0, 1), port), prover="plonk", srs_path=srs,
+        trust_backend="cuda-windowed"))
+    node._event_source = lambda: ChainEventSource(DevChainRpc(chain), station)
+    m = node.manager
+    check(str(m.device).startswith("cuda") and m.config.check_circuit and not node.config.async_prover
+          and m.config.prover == "plonk", f"client: the node is not the default cell on the card: "
+          f"{m.config}, {m.device}")
+    graft = graft_wrappers()
+    epoch = Epoch(CLIENT["epoch"])
+    alice = clients[0]
+    alice.config.server_url = f"http://127.0.0.1:{port}"
+    cli_dir = work / "cli_data"
+    cli_dir.mkdir()
+    (cli_dir / "bootstrap-nodes.csv").write_text((data / "bootstrap-nodes.csv").read_text())
+    dataclasses.replace(alice.config, et_verifier_wrapper_address="0x" + "00" * 20,
+                        et_verifier_bin=str(work / "et_verifier.bin")).save(cli_dir / "client-config.json")
+
+    async def scenario():
+        loop = asyncio.get_running_loop()
+        try:
+            t0 = time.perf_counter()
+            await node.start()
+            node._tasks[0].cancel()  # no tick from the clock: the one below is by hand
+            await loop.run_in_executor(None, m.warm_prover)
+            rec["start_s"] = time.perf_counter() - t0
+            deadline = time.monotonic() + CLIENT["wait_s"]
+            while sorted(tuple(a.scores) for a in m.attestations.values()) != rows:
+                check(time.monotonic() < deadline,
+                      f"client: the chain's rows were not admitted in {CLIENT['wait_s']} s")
+                await asyncio.sleep(0.05)
+            rec["replayed_s"] = time.perf_counter() - t0
+            for w in (*trust_wrappers, *graft):
+                w.launches = 0
+            t0 = time.perf_counter()
+            await loop.run_in_executor(None, node._epoch_tick, epoch)
+            rec["tick_s"] = time.perf_counter() - t0
+            rec["launches"] = {w.__name__: w.launches for w in (*trust_wrappers, *graft)}
+            t0 = time.perf_counter()
+            raw = await loop.run_in_executor(None, alice.fetch_proof)
+            rec["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+            # The entry point against the node while it serves, both
+            # subcommands at once.
+            t0 = time.perf_counter()
+            rec["cli_show"], rec["cli_verify"] = await asyncio.gather(*(
+                loop.run_in_executor(None, run_cli, ["--data-dir", str(cli_dir), mode],
+                                     CLIENT["cli_timeout_s"]) for mode in ("show", "verify")))
+            rec["cli_s"] = time.perf_counter() - t0
+            return raw
+        finally:
+            # A failed check exits through here: the node stops either way.
+            if node._server is not None and node._server.is_serving():
+                await node.stop()
+
+    raw = asyncio.run(scenario())
+    result = m.cached_results[epoch]
+    phases = (TIMELINE.get(epoch.number) or {}).get("phases", {})
+    rec.update(iterations=result.iterations, backend=result.backend, phases=phases,
+               converge_s=phases.get("converge"), prove_s=phases.get("prove"))
+    emit("client_tick", nvidia_smi=smi, **{k: rec[k] for k in (
+        "start_s", "replayed_s", "tick_s", "iterations", "backend", "phases", "launches", "fetch_ms")})
+
+    # -- 5. the tick's launches ----------------------------------------------------
+    want = {w.__name__: 0 for w in (*trust_wrappers, *graft)}
+    want.update(KERNEL_INVARIANTS["cuda-windowed"].expected_launches(result.iterations))
+    check(result.backend == "cuda-windowed" and result.iterations > 0,
+          f"client: the epoch converged on {result.backend} in {result.iterations} iterations")
+    check(rec["launches"] == want, f"client: tick launches {rec['launches']}, budget {want}")
+
+    # -- 6. fetch and verify -----------------------------------------------------------
+    served = raw.to_proof()
+    cached = m.get_proof(epoch)
+    check((served.pub_ins, served.proof) == (cached.pub_ins, cached.proof),
+          "client: /score is not the node's cached proof of the epoch")
+    check(alice.use_chain(), "client: the client is not in chain mode")
+    t0 = time.perf_counter()
+    on_chain = alice.verify(raw)
+    rec["chain_verify"] = dict(ok=on_chain, seconds=time.perf_counter() - t0,
+                               gas=receipts[-1].gas_used)
+    check(on_chain, "client: the served proof was refused on-chain")
+    check(any(lg.topics[:2] == [VERIFIED_TOPIC, DevChainBackend.SENDER] for lg in chain.logs),
+          "client: no Verified(sender) log on the chain")
+    bad = ProofRaw(pub_ins=[bytes([raw.pub_ins[0][0] ^ 1]) + raw.pub_ins[0][1:]] + raw.pub_ins[1:],
+                   proof=raw.proof, backend=raw.backend)
+    t0 = time.perf_counter()
+    refused = not alice.verify(bad)
+    rec["chain_verify_tampered"] = dict(refused=refused, seconds=time.perf_counter() - t0,
+                                        gas=receipts[-1].gas_used)
+    check(refused, "client: a flipped public-input byte verified on-chain")
+    check(timed_verify("served_on_committed", committed, served.pub_ins, served.proof),
+          "client: the served proof fails on data/et_verifier.bin")
+    cpu = Manager(ManagerConfig(backend="cuda-windowed", device="cpu", srs_path=srs), prover=prover)
+    replayed = [AttestationData.from_bytes(ev.val, 5).to_attestation(5)
+                for ev in ChainEventSource(DevChainRpc(chain), station).replay()]
+    check(all(v.accepted for v in cpu.add_attestations_bulk(replayed)),
+          "client: the CPU manager refused the chain's attestations")
+    t0 = time.perf_counter()
+    cpu.calculate_proofs(epoch)
+    rec["cpu_prove_s"] = time.perf_counter() - t0
+    cpu_proof = cpu.get_proof(epoch)
+    rec["proof_equal_cpu"] = (served.pub_ins, served.proof) == (cpu_proof.pub_ins, cpu_proof.proof)
+    check(rec["proof_equal_cpu"], "client: the served proof differs from the CPU manager's prove")
+    total = sum(served.pub_ins) % field.MODULUS
+    check(total == 5 * 1000, f"client: public scores sum to {total} in the field, not 5000")
+
+    # -- 7. the entry point ------------------------------------------------------------
+    show, verify = rec["cli_show"], rec["cli_verify"]
+    check(show["exit_code"] == 0 and json.loads(show["stdout"])["server_url"] == alice.config.server_url,
+          f"client: the CLI's show: {show}")
+    check(verify["exit_code"] == 0 and verify["stdout"].strip() == "Successful verification!",
+          f"client: the CLI's verify: {verify}")
+
+    os.environ.pop(CACHE_ENV, None)
+    shutil.rmtree(plonk_ctx["keys"].parent, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
+    rec["cli"] = {k: dict(exit_code=v["exit_code"], seconds=v["seconds"], stdout=v["stdout"][-200:])
+                  for k, v in (("show", show), ("verify", verify))}
+    del rec["cli_show"], rec["cli_verify"]
+    emit("client", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         pub_ins=[str(x) for x in served.pub_ins], proof_bytes=len(served.proof), **rec)
+    return rec["launches"]
 
 
 SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
@@ -3374,7 +3649,10 @@ def main() -> None:
     # -- 13. server: the node daemon over the card converge and the planes -
     server_launches = server_phase(plonk_ctx, wrappers, check, emit, smi)
 
-    # -- 14. pod: 2 hosts over per-host plans, then host loss and resume ----
+    # -- 14. client: attest on a dev chain, prove on the card, verify on-chain
+    client_launches = client_phase(plonk_ctx, wrappers, check, emit, smi)
+
+    # -- 15. pod: 2 hosts over per-host plans, then host loss and resume ----
     pod_launches = pod_phase(pod_in, check, emit, smi)
     del pod_in
 
@@ -3426,6 +3704,7 @@ def main() -> None:
         entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
         entry["planes_launches"] = planes_launches.get(wrapper, 0)
         entry["server_launches"] = server_launches.get(wrapper, 0)
+        entry["client_launches"] = client_launches.get(wrapper, 0)
         entry["pod_launches"] = [ranks.get(wrapper, 0) for ranks in pod_launches]
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()

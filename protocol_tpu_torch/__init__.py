@@ -26,6 +26,11 @@ reference so each counterpart is easy to find:
   EdDSA (with the repository's C++ runtime built at first use), proofs,
   proof jobs, spans, metrics and the journal, fault points, and the
   kernel and communication budgets.
+- ``client``, ``evm`` — the client wallet (``python -m
+  protocol_tpu_torch.client.cli <subcommand>``: attest on a chain, fetch
+  a node's proof, verify it on-chain) and the in-process EVM with its dev
+  chain, on which the verifier contract that ``zk.evm_verifier``
+  generates runs.  Host code: neither takes a device.
 - ``models``  — graph and churn generators and ``EigenTrustModel``.
 - ``bench``   — the reference's gather/transpose probes on the card,
   with their hand-written CUDA kernels (``ops/csrc/take_along_axis.cu``,
@@ -45,8 +50,8 @@ import importlib
 __version__ = "0.1.0"
 
 _SUBMODULES = (
-    "analysis", "bench", "chaos", "crypto", "models", "node", "obs", "ops", "parallel",
-    "prover", "trust", "utils", "zk",
+    "analysis", "bench", "chaos", "client", "crypto", "evm", "models", "node", "obs", "ops",
+    "parallel", "prover", "trust", "utils", "zk",
 )
 
 

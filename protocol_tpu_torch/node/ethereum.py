@@ -242,7 +242,7 @@ class ChainEventSource:
 class DevChainRpc:
     """RPC backend over an in-process dev chain: any object with
     ``eth_block_number()`` and ``eth_get_logs(address=, from_block=,
-    to_block=, topic0=)``, such as the reference's ``evm/devchain.py``."""
+    to_block=, topic0=)``, such as ``evm.devchain.DevChain``."""
 
     def __init__(self, chain):
         self._chain = chain

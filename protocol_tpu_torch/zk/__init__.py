@@ -6,8 +6,9 @@ native runtime (``native``), the proving-kernel backend knob
 (``graft``), the ``Proof``/``ProofRaw`` wire types with the PLONK
 and Poseidon commitment provers (``proof``), and proof aggregation: the
 native KZG accumulation (``aggregator``) and its in-circuit fold
-(``agg_circuit`` over the emulated-Fq chips of ``wrong_field``).  The
-EVM verifier is not ported yet (ROADMAP A12)."""
+(``agg_circuit`` over the emulated-Fq chips of ``wrong_field``), and
+the EVM verifier contract generated from a verifying key
+(``evm_verifier``, run on ``evm``)."""
 
 from .circuit import EigenTrustCircuit, prove_epoch_statement  # noqa: F401
 from .cs import ConstraintSystem  # noqa: F401

@@ -163,6 +163,7 @@ class PlonkEpochProver(Prover):
             for sk, pk, m, r in zip(sks, pks, messages, rows)
         ]
         pub = power_iterate([initial_score] * n, rows, num_iter, scale)
+        self._dummy_statement = (atts, pub)
         cs = prove_epoch_statement(atts, pub, **self._params)
         if srs is None and srs_path is None:
             # A fresh random setup is fine for development, but its
@@ -346,12 +347,21 @@ class PlonkEpochProver(Prover):
 
     def generate_verifier_artifact(self):
         """Generate the EVM verifier contract for this circuit (the
-        gen_evm_verifier_code analog).  The EVM verifier codegen
-        (``zk/evm_verifier.py``) is not ported yet: this raises."""
-        raise NotImplementedError(
-            "the EVM verifier artifact is not ported to protocol_tpu_torch yet "
-            "(ROADMAP A12, zk/evm_verifier.py)"
+        gen_evm_verifier_code analog): proves the keygen dummy
+        statement once to pin the quotient-chunk count, then emits
+        bytecode.  Returns (GeneratedVerifier, sample_pub_ins,
+        sample_proof) — the sample is expensive (a full prove), so
+        callers reuse it rather than proving again."""
+        from .evm_verifier import generate_evm_verifier, infer_n_t
+
+        atts, pub = self._dummy_statement
+        cs = self._prove_statement(atts, pub, **self._params)
+        sample = self._plonk.prove(self._pk, cs, pub, transcript=self.TRANSCRIPT)
+        n_t = infer_n_t(self._pk.vk, sample)
+        gen = generate_evm_verifier(
+            self._pk.vk, n_t, self._params["num_neighbours"]
         )
+        return gen, pub, sample
 
 
 class PoseidonCommitmentProver(Prover):

@@ -12,7 +12,11 @@ the resumable cursor, a hung call timing out as a retry, driven by the
 JSON, the decode of the same logs) and the node's chain-event loop: a
 ``DevChainRpc``-backed source resumes from the checkpoint manifest's
 block cursor, its events reach the cache through the admission plane,
-and the cursor advances on disk.
+and the cursor advances on disk; and the reference's
+``tests/test_devchain.py::TestEventSourceOverDevChain`` flow on the
+port's real dev chain: each bootstrap identity's client attests through
+``DevChainBackend``, and a port node's ``ChainEventSource`` replays the
+log from block 0 into its cache.
 """
 
 import asyncio
@@ -396,3 +400,51 @@ class TestNodeEventSources:
         assert tuple(rows[0]) not in got, "a block before the cursor was replayed"
         assert chain.queries[0][1:3] == (3, 7)
         assert CheckpointStore(ckpt).block_cursor() == 8
+
+    def test_client_attests_on_the_dev_chain_and_the_node_replays_it(self):
+        """Client attest → the port's ``DevChain`` → ``ChainEventSource``
+        replay → a port ``Node`` (``device="cpu"``): the five bootstrap
+        identities' rows replace the node's pre-filled uniform ones, each
+        event's creator is the dev account and its value the payload the
+        client sent."""
+        from protocol_tpu_torch.client.client import (
+            ClientConfig,
+            DevChainBackend,
+            EigenTrustClient,
+        )
+        from protocol_tpu_torch.evm.devchain import DevChain
+        from protocol_tpu_torch.node.bootstrap import read_bootstrap_csv
+        from tests.test_torch_client import DATA
+
+        chain = DevChain()
+        station = f"0x{chain.deploy_attestation_station():040x}"
+        nodes = read_bootstrap_csv(DATA / "bootstrap-nodes.csv")
+        # Each row sums to the scale, 1000, with no self-score.
+        rows = [[0 if j == i else 100 * (1 + (j - i - 1) % 5) for j in range(5)] for i in range(5)]
+        assert all(sum(r) == 1000 and r[i] == 0 for i, r in enumerate(rows))
+        sent = []
+        for node_id, row in zip(nodes, rows):
+            cfg = ClientConfig.load(DATA / "client-config.json")
+            cfg.secret_key, cfg.ops, cfg.as_address = (node_id.sk0, node_id.sk1), row, station
+            sent.append(EigenTrustClient(cfg, nodes, chain=DevChainBackend(chain)).attest().val)
+        events = list(ChainEventSource(DevChainRpc(chain), station).replay())
+        assert [e.val for e in events] == sent
+        assert {int(e.creator, 16) for e in events} == {DevChainBackend.SENDER}
+
+        node = Node.from_config(ProtocolConfig(
+            epoch_interval=3600, endpoint=((127, 0, 0, 1), 0), prover="commitment", device="cpu"))
+        node._event_source = lambda: ChainEventSource(DevChainRpc(chain), station)
+
+        async def scenario():
+            await node.start()
+            deadline = time.monotonic() + 30
+            while time.monotonic() < deadline:
+                if sorted(tuple(a.scores) for a in node.manager.attestations.values()) == \
+                        sorted(map(tuple, rows)):
+                    break
+                await asyncio.sleep(0.05)
+            await node.stop()
+
+        asyncio.run(scenario())
+        assert sorted(tuple(a.scores) for a in node.manager.attestations.values()) == \
+            sorted(map(tuple, rows))

@@ -67,8 +67,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
     """The import check above covers every subpackage the node brought,
     not only the kernels' modules."""
     mods = set(port_modules())
-    for sub in ("analysis", "chaos", "crypto", "ingest", "node", "obs", "parallel", "prover",
-                "utils", "zk"):
+    for sub in ("analysis", "chaos", "client", "crypto", "evm", "ingest", "node", "obs",
+                "parallel", "prover", "utils", "zk"):
         assert f"protocol_tpu_torch.{sub}" in mods, sub
     for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
                 "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs",
@@ -80,7 +80,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "ingest.ratelimit", "ingest.workers", "ingest.plane", "prover.workers",
                 "prover.plane", "node.config", "node.ethereum", "node.server", "obs.slo",
                 "obs.podtrace", "crypto.merkle", "zk.wrong_field", "zk.aggregator",
-                "zk.agg_circuit", "parallel.pod", "parallel.dryrun_pod", "node.pod"):
+                "zk.agg_circuit", "parallel.pod", "parallel.dryrun_pod", "node.pod",
+                "evm.machine", "evm.devchain", "zk.evm_verifier", "client.client", "client.cli"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -220,6 +221,36 @@ def test_the_server_entry_point_serves_and_stops_without_jax(tmp_path):
     # ``-m`` runs the server module as ``__main__``; what it imports is logged.
     for mod in ("protocol_tpu_torch.node.manager", "protocol_tpu_torch.node.config",
                 "protocol_tpu_torch.ingest.plane", "protocol_tpu_torch.obs.slo"):
+        assert mod in imported, mod
+    assert [m for m in imported if forbidden(m)] == []
+
+
+def test_the_client_cli_runs_with_jax_and_the_reference_unimportable(tmp_path):
+    """``python -m protocol_tpu_torch.client.cli --data-dir <tmp> show`` in
+    a process where ``jax``, ``jaxlib`` and ``protocol_tpu`` cannot be
+    imported: it prints the configuration and exits 0, and its import log
+    names none of them."""
+    data = tmp_path / "data"
+    data.mkdir()
+    for name in ("client-config.json", "bootstrap-nodes.csv"):
+        (data / name).write_text((REPO / "data" / name).read_text())
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['cli', '--data-dir', sys.argv[1], 'show']\n"
+        "runpy.run_module('protocol_tpu_torch.client.cli', run_name='__main__')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    out = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c", code, str(data)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert json.loads(out.stdout) == json.loads((data / "client-config.json").read_text())
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in out.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    for mod in ("protocol_tpu_torch.client.client", "protocol_tpu_torch.node.bootstrap"):
         assert mod in imported, mod
     assert [m for m in imported if forbidden(m)] == []
 

@@ -1,8 +1,11 @@
 """The port's PLONK epoch prover on the committed deployment artifacts:
 a prover built from ``data/srs-15.bin`` for the default 5-member
 statement (k = 14) verifies the reference's committed epoch proof
-``data/et_proof.json`` and rejects its tampered copies.  The k = 14
-prove, byte-identical to the reference's, is in the slow tier."""
+``data/et_proof.json`` and rejects its tampered copies, and the EVM
+verifier it generates for that proof's quotient-chunk count is the
+committed ``data/et_verifier.bin`` byte for byte.  The k = 14 prove,
+byte-identical to the reference's, and ``generate_verifier_artifact``
+(a sample prove, then codegen) are in the slow tier."""
 
 import pathlib
 
@@ -65,3 +68,32 @@ def test_default_epoch_proof_equal_to_the_reference(prover, tmp_path):
     ours, want = m.get_proof(Epoch(2)), ref.get_proof(RefEpoch(2))
     assert (ours.pub_ins, ours.proof) == (list(want.pub_ins), want.proof)
     assert theirs.verify(ours.pub_ins, ours.proof)
+
+
+def test_generated_verifier_is_the_committed_artifact(prover, committed):
+    """Bytes equal: the runtime ``generate_evm_verifier`` emits for the
+    port's k = 14 key at the committed proof's quotient-chunk count, with
+    its ``n_t`` and calldata length, against ``data/et_verifier.bin``."""
+    from protocol_tpu_torch.zk.evm_verifier import (
+        GeneratedVerifier,
+        generate_evm_verifier,
+        infer_n_t,
+    )
+
+    blob = (DATA / "et_verifier.bin").read_bytes()
+    gen = generate_evm_verifier(prover.vk, infer_n_t(prover.vk, committed.proof), 5)
+    assert gen.runtime == GeneratedVerifier.from_bytes(blob).runtime
+    assert gen.to_bytes() == blob
+
+
+@pytest.mark.slow
+def test_verifier_artifact_is_the_committed_one(prover):
+    """``generate_verifier_artifact()``: one sample prove of the keygen's
+    dummy statement, then codegen; the artifact is the committed one and
+    the sample proof verifies on the port's EVM."""
+    from protocol_tpu_torch.zk.evm_verifier import evm_verify
+
+    gen, pub, sample = prover.generate_verifier_artifact()
+    assert gen.to_bytes() == (DATA / "et_verifier.bin").read_bytes()
+    assert prover.verify(pub, sample)
+    assert evm_verify(gen, pub, sample)[0]

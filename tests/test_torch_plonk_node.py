@@ -6,8 +6,9 @@ the epoch statement and proves it, and its proof is byte-identical to
 the reference node's; each package verifies the other's proof, and a
 checkpoint either package saves with its PLONK proof recovers in the
 other, where the proof verifies; both nodes aggregate the proof to the
-same accumulator.  What is not ported raises naming its ROADMAP item;
-``zk_backend="graft"`` proves on the node's device."""
+same accumulator; the EVM verifier artifact each package generates for
+the statement is the same bytecode, and the port's sample proof verifies
+on the port's EVM; ``zk_backend="graft"`` proves on the node's device."""
 
 import pathlib
 
@@ -164,8 +165,21 @@ class TestNotPorted:
         assert acc.to_bytes() == ref_acc.to_bytes()
 
     def test_verifier_artifact_raises_naming_a12(self, provers):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            provers[0].generate_verifier_artifact()
+        """The EVM verifier is ported (ROADMAP A12): the port's artifact
+        for the 2-peer statement is the bytecode the reference's
+        ``generate_evm_verifier`` emits for the same key at the same
+        quotient-chunk count, byte for byte, and the sample proof the
+        port's generator proved verifies on the port's EVM."""
+        from protocol_tpu.zk import evm_verifier as ref_ev
+        from protocol_tpu_torch.zk.evm_verifier import evm_verify
+
+        gen, pub, sample = provers[0].generate_verifier_artifact()
+        assert provers[1].vk.digest == provers[0].vk.digest
+        want = ref_ev.generate_evm_verifier(provers[1].vk, ref_ev.infer_n_t(provers[1].vk, sample),
+                                            PARAMS[0])
+        assert gen.to_bytes() == want.to_bytes()
+        assert provers[0].verify(pub, sample)
+        assert evm_verify(gen, pub, sample)[0]
 
     def test_graft_backend_raises_naming_a8_and_caches_no_proof(self, provers):
         """The graft kernels are ported (ROADMAP A8): the node proves under
