@@ -30,11 +30,11 @@ converge, and BASELINE ladder configs 1-3 through ``native-cpu``,
 ``cuda-dense`` and ``cuda-sparse`` (``backends``).  Between the two,
 the sharded converge (``sharded``): ``cuda-sharded:cuda-csr`` and
 ``:cuda-windowed`` on 4 ranks (processes) that share the card at the
-headline and on 8 at 65,536 peers, their all-reduce on ``gloo`` (NCCL
+headline and on 4 at 65,536 peers, their all-reduce on ``gloo`` (NCCL
 refuses two ranks on one card), held against the single-card converges,
 the ranks against each other bit for bit, each rank's launches and
 all-reduces against the declared budgets, each shard's kernel route
-against its plain route, and the 8 card ranks against 8 CPU ranks.
+against its plain route, and the 4 card ranks against 4 CPU ranks.
 Last it runs the
 reference's gather/transpose probes (``protocol_tpu_torch.bench``) at
 their own shapes, which hold the probe kernels K2-K4 against their plain
@@ -72,7 +72,7 @@ a replay, a stale nonce, a bad signature, a structurally invalid item),
 every verdict equal across the runs and to the direct
 ``add_attestations_bulk``, sigs/s, the admitted group converged on the
 card; then the plonk cell's default node ticking as the reference's
-server does in async mode, 3 ticks at its 10 s epoch interval, each
+server does in async mode, 2 ticks at its 10 s epoch interval, each
 proof proved by one spawned, prewarmed worker of ``ProvingPlane`` —
 under ``native`` and under ``graft``, where the worker launches K10-K13
 in its own CUDA context — every landed proof equal to the sync proof's
@@ -115,8 +115,26 @@ epoch and a 1 % churned one: the hosts' bits equal, the cold fixed
 point within L1 1e-5 of the single-card converge, each host's churned
 plan outcome the reference's rule, launches and all-reduces on the
 budgets; then ``python -m protocol_tpu_torch.parallel.dryrun_pod
---device cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters,
-which must exit 0 with no acknowledged attestation lost.
+--device cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters but
+3 epochs, which must exit 0 with no acknowledged attestation lost.
+Last the analyzers (``analysis``): ``python -m
+protocol_tpu_torch.analysis`` with every pass but comm (the ``sharded``
+phase holds the comm budgets; the tests hold the comm leg on the CPU) in
+a subprocess, which must exit 0: every card backend's step captured in a
+CUDA graph with its launches on budget and one replay bit-equal, every
+converge's resident and transient bytes at two scales within its
+``MemBudget`` or waived by name (K9's lanes), every converge bit-equal
+across two runs and a fresh process, every waiver used; then the
+headline's windowed, CSR and COO peaks against the same formulas, and
+one runtime fixture of each kind (an extra kernel launch, an O(E)
+temporary, a run-order-dependent sum, a second all-reduce) run here,
+each caught.
+
+To stay inside the time limit with the ``analysis`` phase, three phases
+run shallower than they did before it: ``sharded`` at 65,536 peers on 4
+ranks instead of 8 (card and CPU), ``planes`` 2 ticks of each engine
+instead of 3, and ``pod``'s host-loss dry run 3 epochs instead of
+``POD_r01.json``'s 4.  Every kind of check they make is kept.
 
 Every phase prints its JSON lines.  Before the last line come the card's
 ``nvidia-smi`` name and power limit and one ``{"kernels": [...]}`` line
@@ -128,6 +146,8 @@ K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on
 (``plonk_launches``), on the planes phase's converges and in its graft
 worker (``planes_launches``), on the server's ticks
 (``server_launches``), on the client phase's tick (``client_launches``),
+in the analysis phase, its subprocesses and fixtures included
+(``analysis_launches``),
 on each rank of the sharded headline
 converges by backend (``sharded_launches``), on each pod host over its
 two headline epochs (``pod_launches``), agreement with the plain version, its
@@ -1060,7 +1080,7 @@ PLANES = dict(
     # Async proving: the plonk cell's default node, one spawned prewarmed
     # prover worker, ticks paced at the reference's epoch_interval
     # (protocol_tpu/node/config.py:16), under each proving engine.
-    ticks=3, interval_s=10.0, zk_backends=("native", "graft"), prove_timeout_s=600.0,
+    ticks=2, interval_s=10.0, zk_backends=("native", "graft"), prove_timeout_s=600.0,
 )
 
 
@@ -2298,7 +2318,7 @@ def client_phase(plonk_ctx, trust_wrappers, check, emit, smi) -> dict:
     return rec["launches"]
 
 
-SHARDED = dict(ranks=4, small_ranks=8, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
+SHARDED = dict(ranks=4, small_ranks=4, kw=dict(alpha=0.1, tol=0.0, max_iter=HEADLINE["iters"]),
                small_kw=dict(alpha=0.1, tol=1e-6, max_iter=60), timeout_s=600)
 
 
@@ -2318,9 +2338,9 @@ def sharded_phase(graph, single, check, emit, smi) -> dict:
     (``COMM_INVARIANTS``), peak memory under the single-card converge's;
     then a step's kernel route against its plain route on every shard,
     bit for bit, and a step's wall time split into the shard's kernels,
-    the all-reduce and ``damp``, with rank 0's profiler trace.  8 ranks
+    the all-reduce and ``damp``, with rank 0's profiler trace.  4 ranks
     at 65,536 peers (tol 1e-6): the same checks of bits, launches and
-    all-reduces, the routes, and the card against the same 8 ranks on the
+    all-reduces, the routes, and the card against the same 4 ranks on the
     CPU, the same iterations and L1 ≤ 1e-6.  Returns each rank's headline
     launches by kernel, for the ``kernels`` line."""
     import shutil
@@ -2436,7 +2456,7 @@ def sharded_phase(graph, single, check, emit, smi) -> dict:
     del results
     shutil.rmtree(work, ignore_errors=True)
 
-    # -- 65,536 peers: 8 ranks on the card and on the CPU ------------------
+    # -- 65,536 peers: 4 ranks on the card and on the CPU ------------------
     small = scale_free(SMALL["n"], SMALL["nnz"], seed=SMALL["seed"])
     kw = SHARDED["small_kw"]
     card, card_seconds = launch(SHARDED["small_ranks"], [
@@ -2467,9 +2487,149 @@ def sharded_phase(graph, single, check, emit, smi) -> dict:
     return sharded_launches
 
 
+ANALYSIS = dict(
+    # Every pass of ``python -m protocol_tpu_torch.analysis`` but comm (the
+    # ``sharded`` phase holds the comm budgets on the card at two scales;
+    # the analyzer's comm leg is held on the CPU by the tests).
+    passes=("step", "ast", "concurrency", "memory", "determinism"), timeout_s=300,
+    # One runtime fixture of each kind, run in this process, each caught.
+    fixtures=(("step-extra-launch", {}), ("mem-o-e-temporary", {}), ("det-run-order", {}),
+              ("comm-two-all-reduces", {"ranks": 1})),
+)
+
+
+def analysis_phase(headline_mem, check, emit, smi) -> dict:
+    """The analyzers on the card (``protocol_tpu_torch.analysis``):
+    ``python -m protocol_tpu_torch.analysis`` with every pass but comm, in
+    a subprocess, must exit 0; its ``ANALYSIS.json`` is read back: every
+    card backend's step captured in a CUDA graph, its launches on the
+    budget and one replay bit-equal; every backend's converge measured at
+    both scales within its ``MemBudget`` or waived by name; every converge
+    bit-equal across two runs and a fresh process; every waiver of every
+    table used.  Then the headline's peaks (``headline_mem``: windowed,
+    CSR and COO at 1M/50M) judged against the same formulas and waivers,
+    and one runtime fixture of each kind (step, memory, determinism,
+    comm) run in this process, each caught.  Returns the phase's launches
+    by kernel (the subprocess, its fresh process and memory ranks, then
+    the fixtures), for the ``kernels`` line."""
+    from protocol_tpu_torch.analysis.budget import KERNEL_INVARIANTS
+    from protocol_tpu_torch.analysis.cases import card_backends, launch_counts, launches_since
+    from protocol_tpu_torch.analysis.fixtures import FIXTURES, run_fixture
+    from protocol_tpu_torch.analysis.memory.checker import DENSE_SCALES, MEM_SCALES, judge_peak
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_analysis"
+    work.mkdir(parents=True, exist_ok=True)
+    out = work / "ANALYSIS.json"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "protocol_tpu_torch.analysis", "--device", "cuda",
+           "--output", str(out)]
+    for name in ANALYSIS["passes"]:
+        cmd += ["--pass", name]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                          timeout=ANALYSIS["timeout_s"])
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the analyzers exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(out.read_text())
+    backends = card_backends()
+
+    # The step leg: every card backend captured, on budget, replayed bit-equal.
+    steps = {}
+    for name in backends:
+        b = report["backends"].get(name, {})
+        cap = b.get("capture") or {}
+        want = {w: KERNEL_INVARIANTS[name].launches_per_step.get(w, 0) for w in cap.get("launches", {})}
+        steps[name] = {"captured": cap.get("captured"), "replay_bit_equal": cap.get("replay_bit_equal"),
+                       "launches": cap.get("launches"), "host_syncs": len(b.get("host_syncs") or ())}
+        check(cap.get("captured") and cap.get("replay_bit_equal") and cap.get("launches") == want
+              and b.get("violations") == 0,
+              f"analysis step {name}: capture {cap}, budget {want}, violations {b.get('violations')}")
+    check(not report["summary"]["not_run"], f"analysis: rules not run on the card: "
+          f"{report['summary']['not_run']}")
+
+    # The memory leg: both scales of every backend (the sharded ones on each
+    # rank), each within its budget or waived by name.
+    mem = report["memory"]
+    waived_mem = {(w["rule"], w["file"], w["line"]) for w in mem["waived"]}
+    scales = {}
+    for name in backends:
+        recs = mem["backends"][name]["scales"]
+        n_scales = len(DENSE_SCALES) if name == "cuda-dense" else len(MEM_SCALES)
+        ranks = 2 if name.startswith("cuda-sharded") else 1
+        check(mem["backends"][name]["status"] == "checked" and len(recs) == n_scales * ranks,
+              f"analysis memory {name}: {len(recs)} records, expected {n_scales * ranks}")
+        scales[name] = [
+            {"scale": r["scale"], "rank": (r.get("meta") or {}).get("rank"),
+             "resident": r["measured"]["resident_bytes"], "budget_resident": r["budget_resident_bytes"],
+             "transient": r["measured"]["transient_bytes"], "budget_transient": r["budget_transient_bytes"],
+             "allocated_transient": (r.get("meta") or {}).get("allocated_transient_bytes"),
+             "within": r["measured"]["resident_bytes"] <= r["budget_resident_bytes"]
+             and r["measured"]["transient_bytes"] <= r["budget_transient_bytes"],
+             "largest": r["measured"]["largest"]}
+            for r in recs
+        ]
+        for r in scales[name]:
+            site = r["largest"] or {}
+            check(r["within"] or ("o-e-live-temporary", site.get("file"), site.get("line")) in waived_mem,
+                  f"analysis memory {name} {r['scale']}: over its budget and not waived: {r}")
+
+    # The determinism leg: every converge bit-equal, here and in a fresh process.
+    det = {name: report["determinism"]["backends"][name]["bit_equal"] for name in backends}
+    check(all(det.values()), f"analysis determinism: converges differ across runs: {det}")
+
+    # Every waiver table evaluated in this run used every entry.
+    stale = {p: report[p].get("stale_waivers") for p in ("ast", "concurrency", "memory", "determinism")}
+    check(not any(stale.values()), f"analysis: stale waivers {stale}")
+    waivers = {p: sorted({w["symbol"] for w in report[p].get("waived", ())})
+               for p in ("ast", "concurrency", "memory", "determinism")}
+
+    # The headline's peaks against the same formulas: transient = peak less
+    # what was allocated at the reset, less the t0 the run allocates.
+    largest = {name: mem["backends"][name]["scales"][-1]["measured"]["largest"]
+               for name in headline_mem}
+    headline = {}
+    for name, h in headline_mem.items():
+        live, rec = judge_peak(name, h["dims"], resident_bytes=h["resident_bytes"],
+                               transient_bytes=h["transient_bytes"], largest=largest[name])
+        headline[name] = {k: rec[k] for k in ("budget_resident_bytes", "budget_transient_bytes",
+                                              "resident_margin_bytes", "transient_margin_bytes")}
+        headline[name].update(resident_bytes=h["resident_bytes"], transient_bytes=h["transient_bytes"],
+                              allocated_peak_bytes=h["peak"], allocated_at_reset_bytes=h["baseline"],
+                              waived=[w["symbol"] for w in rec["waived"]])
+        check(not live, f"analysis headline {name}: {[f.render() for f in live]}")
+
+    # One runtime fixture of each kind, in this process, each caught.
+    fixtures = {}
+    before = launch_counts()
+    for name, kw in ANALYSIS["fixtures"]:
+        t0 = time.perf_counter()
+        found = run_fixture(name, "cuda", **kw)
+        rules = sorted({f.rule for f in found or ()})
+        fixtures[name] = {"expects": FIXTURES[name].rule, "rules": rules,
+                          "seconds": time.perf_counter() - t0}
+        check(FIXTURES[name].rule in rules, f"analysis fixture {name}: not caught: {rules}")
+    fixture_launches = launches_since(before)
+
+    launches = dict(fixture_launches)
+    counted = [report["launches"]["this_process"], report["launches"]["fresh_process"],
+               *report["launches"].get("memory_ranks", ())]
+    for part in counted:
+        for w, k in part.items():
+            launches[w] = launches.get(w, 0) + k
+    emit("analysis", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, subprocess_s=run_s,
+         pass_seconds=report["seconds"], summary=report["summary"], steps=steps,
+         memory_scales=scales, headline_peaks=headline, determinism_bit_equal=det,
+         waivers_used=waivers, fixtures=fixtures, launches=report["launches"],
+         fixture_launches=fixture_launches)
+    return launches
+
+
 POD = dict(hosts=2, seed=7, timeout_s=600,
-           # POD_r01.json's parameters for the host-loss run.
-           chaos=["--hosts", "2", "--peers", "8192", "--edges", "65536", "--epochs", "4",
+           # POD_r01.json's parameters for the host-loss run, at 3 epochs
+           # instead of its 4 (host 1 is lost in epoch 1 instead of 2).
+           chaos=["--hosts", "2", "--peers", "8192", "--edges", "65536", "--epochs", "3",
                   "--churn", "0.01", "--tol", "1e-6", "--max-iter", "60", "--seed", "16",
                   "--chaos-host-loss"], chaos_timeout_s=400)
 
@@ -2497,9 +2657,9 @@ def pod_phase(pod_in, check, emit, smi) -> list:
     each rank's peak memory.
 
     Part 2: ``python -m protocol_tpu_torch.parallel.dryrun_pod --device
-    cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters in a
-    subprocess: exit 0, zero acknowledged loss, a final fixed point
-    bit-identical to the control run.
+    cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters but 3
+    epochs (``POD["chaos"]``) in a subprocess: exit 0, zero acknowledged
+    loss, a final fixed point bit-identical to the control run.
 
     Returns each rank's launches by wrapper over part 1's two epochs."""
     import hashlib
@@ -2615,7 +2775,7 @@ def pod_phase(pod_in, check, emit, smi) -> list:
     ]
     del results
 
-    # -- part 2: host loss and resume at POD_r01.json's parameters --------------
+    # -- part 2: host loss and resume at POD_r01.json's parameters, 3 epochs ----
     out = work / "pod_r01.json"
     work.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -2804,6 +2964,8 @@ def main() -> None:
     run_windowed()  # warm-up: kernel load, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
     # Every kernel's count set to 0 just before the main path, read just after.
     wrappers = (
         gw.gather_windowed, sp.ds_cumsum_axis1, sp.block_total_scan, gw.prefix_bridge,
@@ -2823,6 +2985,7 @@ def main() -> None:
     scores, seconds, main_launches = counted(run_windowed)
     launches = main_launches["gather_windowed"]
     peak = torch.cuda.max_memory_allocated()
+    peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"]
     total = float(scores.astype(np.float64).sum())
 
     src_d = torch.from_numpy(g.src).to(dev)
@@ -2839,8 +3002,11 @@ def main() -> None:
     run_csr()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    csr_base = torch.cuda.memory_allocated()
+    csr_base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
     csr_scores, csr_seconds, csr_launches = counted(run_csr)
     csr_peak = torch.cuda.max_memory_allocated()
+    csr_peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"]
     l1_csr = float(np.abs(scores.astype(np.float64) - csr_scores).sum())
     emit(
         "headline", peers=g.n, edges=g.nnz, iterations=iters, plan_seconds=plan_seconds,
@@ -2848,7 +3014,8 @@ def main() -> None:
         compression=plan.compression, seconds=seconds, ms_per_iter=seconds / iters * 1e3,
         max_memory_allocated=peak, k1_launches=launches, launches=main_launches,
         sum_scores=total, csr_seconds=csr_seconds, csr_launches=csr_launches, l1_vs_csr=l1_csr,
-        csr_max_memory_allocated=csr_peak,
+        csr_max_memory_allocated=csr_peak, memory_allocated_at_reset=base,
+        csr_memory_allocated_at_reset=csr_base,
     )
     # A windowed step runs K1 once, K7 once (the plan rows' prefix and the
     # bridge), K5 once (rowsum_sorted's blocks), K6 once (the block
@@ -2887,8 +3054,35 @@ def main() -> None:
     run_sparse()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    sparse_base = torch.cuda.memory_allocated()
+    sparse_base_req = torch.cuda.memory_stats()["requested_bytes.all.current"]
     sparse_scores, sparse_seconds, sparse_launches = counted(run_sparse)
     sparse_peak = torch.cuda.max_memory_allocated()
+    sparse_peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+
+    # The three converges' memory, for the analysis phase's MemBudget
+    # check: resident = each converge's arguments (t0 included, which the
+    # run allocates after the reset), transient = the peak less what was
+    # allocated at the reset, less that t0, in requested bytes (the
+    # analyzers' measure: the allocator's rounding depends on its cache).
+    def nbytes(*tensors):
+        return sum(int(t.untyped_storage().nbytes()) for t in tensors)
+
+    vec = 4 * g.n
+    head_dims = {"n": g.n, "edges": g.nnz, "n_shards": 1}
+    headline_mem = {
+        "cuda-windowed": dict(
+            dims=dict(head_dims, n_segments=plan.seg_capacity, n_rows=plan.n_rows),
+            resident_bytes=nbytes(*args, p_d, dang_d) + vec,
+            transient_bytes=peak_req - base_req - vec, peak=peak, baseline=base),
+        "cuda-csr": dict(
+            dims=head_dims, resident_bytes=nbytes(src_d, ptr_d, w_d, p_d, dang_d) + vec,
+            transient_bytes=csr_peak_req - csr_base_req - vec, peak=csr_peak, baseline=csr_base),
+        "cuda-sparse": dict(
+            dims=head_dims, resident_bytes=nbytes(src_d, dst_d, w_d, p_d, dang_d) + vec,
+            transient_bytes=sparse_peak_req - sparse_base_req - vec, peak=sparse_peak,
+            baseline=sparse_base),
+    }
     t0 = time.perf_counter()
     via_backend = get_backend("cuda-sparse").converge(graph, alpha=0.1, tol=0.0, max_iter=iters)
     backend_seconds = time.perf_counter() - t0
@@ -2899,7 +3093,8 @@ def main() -> None:
     emit(
         "sparse_headline", peers=g.n, edges=g.nnz, iterations=iters, seconds=sparse_seconds,
         ms_per_iter=sparse_seconds / iters * 1e3, csr_seconds=csr_seconds,
-        max_memory_allocated=sparse_peak, launches=sparse_launches,
+        max_memory_allocated=sparse_peak, memory_allocated_at_reset=sparse_base,
+        launches=sparse_launches,
         backend_seconds=backend_seconds, backend_iterations=via_backend.iterations,
         bit_equal_to_csr=sparse_equal,
     )
@@ -3656,6 +3851,9 @@ def main() -> None:
     pod_launches = pod_phase(pod_in, check, emit, smi)
     del pod_in
 
+    # -- 16. analysis: the analyzers on the card, and the headline's peaks --
+    analysis_launches = analysis_phase(headline_mem, check, emit, smi)
+
     # K9, beside its second bound: the random 4-byte reads of the table at
     # the rate this run's K2 read a 4 MB row at random from L2 (its trace
     # time at (8, 1048576), else its event time).
@@ -3705,6 +3903,7 @@ def main() -> None:
         entry["planes_launches"] = planes_launches.get(wrapper, 0)
         entry["server_launches"] = server_launches.get(wrapper, 0)
         entry["client_launches"] = client_launches.get(wrapper, 0)
+        entry["analysis_launches"] = analysis_launches.get(wrapper, 0)
         entry["pod_launches"] = [ranks.get(wrapper, 0) for ranks in pod_launches]
         entry["sharded_launches"] = {
             b: [ranks.get(wrapper, 0) for ranks in per_rank] for b, per_rank in sharded_launches.items()

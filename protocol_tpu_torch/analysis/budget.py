@@ -23,7 +23,16 @@ The graft prover's kernels (``zk/graft/``) declare theirs as well
 (``zk.graft.ZK_KERNELS``), the wrapper that counts its launches and how
 many launches one call of each graft entry makes, from the call's size.
 ``chip_smoke.py`` holds every graft call's launches against them.
-This module imports only the standard library.
+
+Every card backend, the sharded composites included, also declares its
+memory (``MEM_INVARIANTS``): the reference's resident and transient
+formulas, linear in N, the segments and the plan rows, with an edge
+term for the resident arguments only.  ``analysis/memory`` measures a
+converge's peak on the card at two scales against them.
+
+The analyzers (``python -m protocol_tpu_torch.analysis``) check all of
+these tables; a registered backend without its budgets is an error
+there.  This module imports only the standard library.
 """
 
 from __future__ import annotations
@@ -36,11 +45,23 @@ from typing import Callable
 class KernelBudget:
     """The kernels one power step of ``backend`` launches, by the name
     of the wrapper that counts them (``ops/*.py``; each wrapper's
-    ``launches`` attribute), and how many times a step."""
+    ``launches`` attribute), and how many times a step.
+
+    The step leg (``analysis/step.py``) also holds a step's PyTorch ops
+    to the rest of the reference's contract.  Counting convention, the
+    reference's: ops inside a kernel wrapper (its plain version on the
+    CPU, its operand checks) are not gathers or scatters of the step,
+    since on the card they run inside the kernel."""
 
     backend: str
     launches_per_step: dict[str, int] = field(default_factory=dict)
     notes: str = ""
+    #: Gather-family ops (``index_select``, ``gather``, ``index``, ...)
+    #: a step may run outside its kernels (checked on the card).
+    max_gathers: int = 0
+    #: Scatter-family ops (``index_put``, ``scatter*``, ``index_add``,
+    #: ...) a step may run outside its kernels.
+    max_scatters: int = 0
 
     def expected_launches(self, iterations: int) -> dict[str, int]:
         """Launches a converge of ``iterations`` steps makes, by wrapper."""
@@ -116,6 +137,85 @@ ZK_INVARIANTS: dict[str, ZkKernelBudget] = {}
 def declare_zk(budget: ZkKernelBudget) -> ZkKernelBudget:
     """Register a graft kernel budget (idempotent per registry name)."""
     ZK_INVARIANTS[budget.kernel] = budget
+    return budget
+
+
+@dataclass(frozen=True)
+class MemBudget:
+    """Per-backend peak-memory contract, the reference's fields and
+    formulas, checked by ``analysis/memory`` against a converge measured
+    on the card.  All numbers are one rank's (one device's) view, so
+    "per-shard peak scales as E/n_shards" is the formula itself.
+
+    - **resident**: the converge's argument tensors (edge tables,
+      window-plan rows, segment tables, score vectors).  The edge term
+      is divided by ``n_shards``: an edge operand replicated on every
+      rank busts the budget by construction (``shard-replicated-edges``).
+    - **transient**: ``torch.cuda.max_memory_allocated`` over the
+      converge less what was allocated when it started.  It is linear in
+      N, the segments and the plan rows only — there is **no edge
+      coefficient**, so an O(E) live buffer beyond the resident
+      arguments is inexpressible (``o-e-live-temporary``).  Rows are a
+      plan-layout dimension (1024 edge slots each), never a raw edge
+      count.
+
+    ``donated_args`` is kept for the reference's shape: torch has no
+    buffer donation, so every N-vector a converge holds, the carry's
+    copies included, is counted in ``transient_n`` instead.
+    """
+
+    backend: str
+    #: Resident (argument) allowance coefficients.
+    resident_edge_bytes: float = 0.0  # x E / n_shards
+    resident_n: float = 0.0  # x N
+    resident_segments: float = 0.0  # x n_segments (per-shard table)
+    resident_rows: float = 0.0  # x plan rows (per shard)
+    resident_const: float = 0.0
+    #: Transient allowance — NO edge coefficient can be declared here.
+    transient_n: float = 0.0
+    transient_segments: float = 0.0
+    transient_rows: float = 0.0
+    transient_const: float = 0.0
+    donated_args: tuple[str, ...] = ()
+    #: Per-op device-to-host copy cap (``staging_n * N + staging_const``):
+    #: a converge that copies more than this to the host in one op — an
+    #: O(E) staging copy — is a ``host-staging-over-cap`` finding.
+    staging_n: float = 0.0
+    staging_const: float = 0.0
+    notes: str = ""
+
+    def max_resident(
+        self, n: int, edges: int, n_segments: int, rows: int, n_shards: int
+    ) -> float:
+        return (
+            self.resident_edge_bytes * edges / max(n_shards, 1)
+            + self.resident_n * n
+            + self.resident_segments * n_segments
+            + self.resident_rows * rows
+            + self.resident_const
+        )
+
+    def max_transient(self, n: int, n_segments: int, rows: int) -> float:
+        return (
+            self.transient_n * n
+            + self.transient_segments * n_segments
+            + self.transient_rows * rows
+            + self.transient_const
+        )
+
+    def staging_cap(self, n: int) -> float:
+        return self.staging_n * n + self.staging_const
+
+
+#: backend name -> declared memory budget.  Populated by
+#: ``trust/backend.py`` and ``parallel/sharded.py`` at import, next to
+#: the kernel and comm budgets.
+MEM_INVARIANTS: dict[str, MemBudget] = {}
+
+
+def declare_mem(budget: MemBudget) -> MemBudget:
+    """Register a memory budget (idempotent per backend name)."""
+    MEM_INVARIANTS[budget.backend] = budget
     return budget
 
 

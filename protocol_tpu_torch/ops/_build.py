@@ -22,7 +22,6 @@ import pathlib
 import shutil
 import subprocess
 import threading
-import time
 
 import torch
 
@@ -205,8 +204,9 @@ def library_path(name: str) -> pathlib.Path:
 def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
     """Compile every named source that is not built yet, one ``nvcc``
     per source, all started together.  Returns, per source built, the
-    compiler's output (``-Xptxas=-v`` register and shared-memory use)
-    and its seconds; raises with the output if a compile fails."""
+    compiler's output (``-Xptxas=-v`` register and shared-memory use);
+    raises with the output if a compile fails.  The caller times the
+    build: this module keeps no clock."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     running = {}
@@ -217,16 +217,15 @@ def build(names=tuple(SIGNATURES)) -> dict[str, dict]:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(source(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, so, time.perf_counter())
+        running[name] = (proc, tmp, so)
     report = {}
-    for name, (proc, tmp, so, t0) in running.items():
+    for name, (proc, tmp, so) in running.items():
         out, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
         os.replace(tmp, so)
         _count(name)
-        report[name] = {"seconds": seconds, "log": out}
+        report[name] = {"log": out}
     return report
 
 

@@ -32,7 +32,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..analysis.budget import CommBudget, KernelBudget, declare, declare_comm
+from ..analysis.budget import (
+    CommBudget, KernelBudget, MemBudget, declare, declare_comm, declare_mem,
+)
 from ..ops.gather_window import (
     BLOCK_ROWS,
     PLAN_VERSION,
@@ -53,16 +55,21 @@ from .mesh import ShardGroup
 def all_reduce_sum(x: torch.Tensor, mesh: ShardGroup) -> torch.Tensor:
     """``x`` summed over the ranks of ``mesh``, in place and returned:
     one ``dist.all_reduce(SUM)``.  Adds one to ``all_reduce_sum.calls``
-    and ``x``'s bytes to ``all_reduce_sum.bytes``."""
+    and ``x``'s bytes to ``all_reduce_sum.bytes``, and one to
+    ``all_reduce_sum.subgroup_calls`` where ``mesh`` holds fewer ranks
+    than the whole process group (the analyzers' ``replica-group-coverage``)."""
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
     all_reduce_sum.calls += 1
     all_reduce_sum.bytes += x.numel() * x.element_size()
+    if mesh.size < dist.get_world_size():
+        all_reduce_sum.subgroup_calls += 1
     return x
 
 
-#: All-reduces in this process, and their bytes.
+#: All-reduces in this process, their bytes, and those over a sub-group.
 all_reduce_sum.calls = 0  # type: ignore[attr-defined]
 all_reduce_sum.bytes = 0  # type: ignore[attr-defined]
+all_reduce_sum.subgroup_calls = 0  # type: ignore[attr-defined]
 
 
 def _on(mesh: ShardGroup, a: np.ndarray) -> torch.Tensor:
@@ -327,6 +334,19 @@ SHARDED_KERNELS: dict[str, type] = {
 }
 
 
+def sharded_step(problem: ShardedTrustProblem | ShardedWindowPlan, alpha: torch.Tensor):
+    """The power step ``converge_sharded`` iterates over ``problem``:
+    the shard's partial ``Cᵀt``, one ``all_reduce_sum``, then ``damp``
+    (``alpha`` a float32 0-d tensor on the rank's device)."""
+    mesh = problem.mesh
+
+    def step(t):
+        ct = all_reduce_sum(problem.partial_ct(t), mesh)
+        return damp(ct, t, problem.p, problem.dangling, alpha)
+
+    return step
+
+
 def converge_sharded(
     problem: ShardedTrustProblem | ShardedWindowPlan,
     *,
@@ -349,13 +369,9 @@ def converge_sharded(
     mesh = problem.mesh
     alpha_t = torch.tensor(alpha, dtype=torch.float32, device=mesh.device)
     start = problem.p.clone() if t0 is None else _on(mesh, np.asarray(t0, np.float32))
-
-    def step(t):
-        ct = all_reduce_sum(problem.partial_ct(t), mesh)
-        return damp(ct, t, problem.p, problem.dangling, alpha_t)
-
     out = run_power_iteration(
-        step, start, tol=tol, max_iter=max_iter, record_residuals=record_residuals
+        sharded_step(problem, alpha_t), start, tol=tol, max_iter=max_iter,
+        record_residuals=record_residuals,
     )
     t, it, resid = out[:3]
     if record_residuals:
@@ -392,3 +408,26 @@ for _kernel in SHARDED_KERNELS:
             "no term in E",
         )
     )
+
+# One rank's memory (``analysis/memory``): its shard and the replicated
+# vectors resident; transient as the single-card backends' (six float32
+# N-vectors at the epilogue's peak) plus the start vector, ``p.clone()``.
+declare_mem(
+    MemBudget(
+        "cuda-sharded:cuda-csr", resident_edge_bytes=8.0, resident_n=12.0,
+        resident_const=4096.0, transient_n=28.0, transient_const=262144.0,
+        staging_const=8.0,
+        notes="per rank: the src and w slice (E/size), row_ptr, p, dangling; K9's "
+        "lanes over the slice are the single card's O(E) temporary",
+    )
+)
+declare_mem(
+    MemBudget(
+        "cuda-sharded:cuda-windowed", resident_rows=8200.0, resident_segments=9.0,
+        resident_n=12.0, resident_const=4096.0, transient_rows=4096.0,
+        transient_segments=12.0, transient_n=28.0, transient_const=262144.0,
+        staging_const=8.0,
+        notes="per rank: rows_per_shard plan rows (wid, local, weight, run_ptr: "
+        "8,200 B a row), its live runs (9 B a run), dst_ptr, p, dangling",
+    )
+)

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..analysis.budget import KernelBudget, declare
+from ..analysis.budget import KernelBudget, MemBudget, declare, declare_mem
 from ..obs import TRACER
 from ..obs.journal import JOURNAL
 from ..obs.metrics import PLAN_OUTCOMES, PLAN_REBUILDS, PLAN_REUSES
@@ -51,12 +51,9 @@ from ..ops.gather_window import (
 from ..ops.dense import converge_dense
 from ..ops.sparse import converge_csr, converge_sparse
 from ..parallel.mesh import default_mesh
-from ..parallel.sharded import (
-    SHARDED_KERNELS,
-    ShardedTrustProblem,
-    ShardedWindowPlan,
-    converge_sharded,
-)
+# parallel/sharded.py imports this package (``trust.graph``): bound as
+# a module, so importing either one first works.
+from ..parallel import sharded as _sharded
 from .graph import TrustGraph
 
 
@@ -403,9 +400,9 @@ class ShardedTorchBackend(TrustBackend):
     name = "cuda-sharded"
 
     def __init__(self, mesh=None, kernel: str = "cuda-csr", device=None):
-        if kernel not in SHARDED_KERNELS:
+        if kernel not in _sharded.SHARDED_KERNELS:
             raise ValueError(
-                f"unknown sharded kernel {kernel!r}; available: {sorted(SHARDED_KERNELS)}"
+                f"unknown sharded kernel {kernel!r}; available: {sorted(_sharded.SHARDED_KERNELS)}"
             )
         super().__init__(mesh.device if mesh is not None and device is None else device)
         if mesh is not None and mesh.device != self.device:
@@ -425,12 +422,12 @@ class ShardedTorchBackend(TrustBackend):
                  record_residuals=True, t0=None):
         mesh = self.mesh if self.mesh is not None else default_mesh(device=self.device)
         name = self.name if self.kernel == "cuda-csr" else f"{self.name}:{self.kernel}"
-        problem: ShardedTrustProblem | ShardedWindowPlan
+        problem: _sharded.ShardedTrustProblem | _sharded.ShardedWindowPlan
         if self.kernel == "cuda-windowed":
             candidate, rows = self.plan, self.delta_rows
             self.delta_rows = None
             with TRACER.span("plan", backend=name):
-                problem = ShardedWindowPlan.build(graph, mesh, plan=candidate, delta_rows=rows)
+                problem = _sharded.ShardedWindowPlan.build(graph, mesh, plan=candidate, delta_rows=rows)
             outcome = problem.plan_outcome
             if outcome == "reuse":
                 PLAN_REUSES.inc()
@@ -441,10 +438,10 @@ class ShardedTorchBackend(TrustBackend):
             self.plan_outcomes[outcome] += 1
             self.plan = self.last_plan = problem.plan
         else:
-            problem = ShardedTrustProblem.build(graph, mesh)
+            problem = _sharded.ShardedTrustProblem.build(graph, mesh)
         start = None if t0 is None else _initial_vector(t0, graph.pre_trust_vector())
         with TRACER.span("converge", backend=name):
-            out = converge_sharded(
+            out = _sharded.converge_sharded(
                 problem, alpha=alpha, tol=tol, max_iter=max_iter,
                 record_residuals=record_residuals, t0=start,
             )
@@ -467,6 +464,54 @@ declare(
     )
 )
 
+# The memory each card backend's converge entry holds on its device
+# (``analysis/memory``), from the port's own allocations.  Resident: the
+# entry's arguments.  Transient, at the damping epilogue's peak: the
+# loop's ``prev`` and ``t``, the step's ``ct`` and ``damp``'s three
+# temporaries, six float32 N-vectors (24 B a peer).  The constant
+# covers K6's block totals (two float32 a 2048-edge block, 256 KB at
+# 64M edges) and the caching allocator's 512-byte rounding.  K9's two
+# float32 lanes a padded edge (the CSR and COO steps) are an O(E)
+# temporary this budget cannot express; ``analysis/memory/waivers.py``
+# records them (ROADMAP B, K9).  A converge copies at most one scalar
+# to the host at a time.
+_TRANSIENT_CONST = 262144.0
+declare_mem(
+    MemBudget(
+        "cuda-dense", resident_edge_bytes=4.0, resident_n=4.0, resident_const=4096.0,
+        transient_n=8.0, transient_const=4096.0, staging_const=8.0,
+        notes="converge_dense: the N x N matrix (E = N^2) and s0 resident; "
+        "the old and new s of one torch.mv transient",
+    )
+)
+declare_mem(
+    MemBudget(
+        "cuda-sparse", resident_edge_bytes=12.0, resident_n=12.0, resident_const=4096.0,
+        transient_n=28.0, transient_const=_TRANSIENT_CONST, staging_const=8.0,
+        notes="converge_sparse: src, dst, w and t0, p, dangling resident; the "
+        "CSR converge's transient plus the derived row pointers (4 B a peer)",
+    )
+)
+declare_mem(
+    MemBudget(
+        "cuda-csr", resident_edge_bytes=8.0, resident_n=16.0, resident_const=4096.0,
+        transient_n=24.0, transient_const=_TRANSIENT_CONST, staging_const=8.0,
+        notes="converge_csr: src, w, row_ptr and t0, p, dangling resident",
+    )
+)
+declare_mem(
+    MemBudget(
+        "cuda-windowed", resident_rows=8196.0, resident_segments=9.0, resident_n=16.0,
+        resident_const=4096.0, transient_rows=4100.0, transient_segments=12.0,
+        transient_n=24.0, transient_const=_TRANSIENT_CONST, staging_const=8.0,
+        notes="converge_windowed: the plan's wid, local, weight (8,196 B a row), "
+        "seg_end, seg_first, seg_perm (9 B a run), dst_ptr and the vectors "
+        "resident; transient: K1's gathered slots (4,096 B a row), row_run_ptr "
+        "(4 B a row), K7's partials and K5's two lanes (12 B a run), the padded "
+        "score table within the six N-vectors",
+    )
+)
+
 _BACKENDS = {
     "native-cpu": NativeCPUBackend,
     "cuda-dense": DenseTorchBackend,
@@ -483,7 +528,7 @@ def registered_backends() -> list[str]:
     names: list[str] = []
     for base in _BACKENDS:
         if base == "cuda-sharded":
-            names.extend(f"{base}:{kernel}" for kernel in sorted(SHARDED_KERNELS))
+            names.extend(f"{base}:{kernel}" for kernel in sorted(_sharded.SHARDED_KERNELS))
         else:
             names.append(base)
     return names

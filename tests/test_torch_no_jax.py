@@ -81,7 +81,12 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "prover.plane", "node.config", "node.ethereum", "node.server", "obs.slo",
                 "obs.podtrace", "crypto.merkle", "zk.wrong_field", "zk.aggregator",
                 "zk.agg_circuit", "parallel.pod", "parallel.dryrun_pod", "node.pod",
-                "evm.machine", "evm.devchain", "zk.evm_verifier", "client.client", "client.cli"):
+                "evm.machine", "evm.devchain", "zk.evm_verifier", "client.client", "client.cli",
+                "analysis.__main__", "analysis.ast_rules", "analysis.cases", "analysis.record",
+                "analysis.step", "analysis.fixtures", "analysis.report",
+                "analysis.concurrency.checker", "analysis.concurrency.witness",
+                "analysis.determinism.checker", "analysis.determinism.replay",
+                "analysis.memory.checker", "analysis.comm.checker"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -253,6 +258,73 @@ def test_the_client_cli_runs_with_jax_and_the_reference_unimportable(tmp_path):
     for mod in ("protocol_tpu_torch.client.client", "protocol_tpu_torch.node.bootstrap"):
         assert mod in imported, mod
     assert [m for m in imported if forbidden(m)] == []
+
+
+def test_the_analyzer_runs_on_the_cpu_with_jax_and_the_reference_unimportable(tmp_path):
+    """``python -m protocol_tpu_torch.analysis --device cpu`` in a process
+    where ``jax``, ``jaxlib`` and ``protocol_tpu`` cannot be imported:
+    every pass runs (the comm ranks and the fresh replay process are
+    spawned from it), it exits 0 on the port's tree, its report lists the
+    card's rules as not run, and its import log names none of them."""
+    out = tmp_path / "ANALYSIS.json"
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['analysis', '--device', 'cpu', '--output', sys.argv[1]]\n"
+        "runpy.run_module('protocol_tpu_torch.analysis', run_name='__main__')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["OMP_NUM_THREADS"] = "1"  # small graphs; the test workers hold the cores
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c", code, str(out)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    report = json.loads(out.read_text())
+    assert report["device"] == "cpu" and report["summary"]["error"] == 0
+    assert set(report["seconds"]) == {"step", "ast", "concurrency", "comm", "memory", "determinism"}
+    assert report["summary"]["not_run"] == {
+        "step": ["launch-budget", "capture-failed", "replay-mismatch"],
+        "memory": ["shard-replicated-edges", "o-e-live-temporary", "host-staging-over-cap"],
+    }
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    for mod in ("protocol_tpu_torch.analysis.step", "protocol_tpu_torch.analysis.memory.checker",
+                "protocol_tpu_torch.analysis.determinism.checker",
+                "protocol_tpu_torch.analysis.comm.checker",
+                "protocol_tpu_torch.analysis.concurrency.checker"):
+        assert mod in imported, mod
+    assert [m for m in imported if forbidden(m)] == []
+
+
+def test_the_analyzer_raises_without_a_card_unless_asked_for_the_cpu(tmp_path):
+    """With no card and no ``--device cpu`` the runtime passes raise
+    before running anything; the AST passes need no device."""
+    out = tmp_path / "ANALYSIS.json"
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for passes in ([], ["--pass", "memory", "--pass", "ast"]):
+        proc = subprocess.run(
+            [sys.executable, "-m", "protocol_tpu_torch.analysis", *passes, "--output", str(out)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0, passes
+        assert "no CUDA device is available" in proc.stderr, passes
+        assert not out.exists()
+    proc = subprocess.run(
+        [sys.executable, "-m", "protocol_tpu_torch.analysis", "--pass", "ast", "--output",
+         str(out)], cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(out.read_text())["device"] is None
+
+
+def test_importing_the_sharded_module_first_works():
+    """``parallel.sharded`` imports the trust package, whose registry
+    imports ``parallel.sharded``: importing it first in a fresh process
+    (as the analyzers' rank programs do) must not fail on the cycle."""
+    subprocess.run([sys.executable, "-c", "import protocol_tpu_torch.parallel.sharded"],
+                   cwd=REPO, check=True, capture_output=True, timeout=120)
 
 
 def server_raises_without_a_card(tmp_path, doc):
