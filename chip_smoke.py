@@ -118,22 +118,28 @@ budgets; then ``python -m protocol_tpu_torch.parallel.dryrun_pod
 --device cuda --chaos-host-loss`` at ``POD_r01.json``'s parameters but
 3 epochs, which must exit 0 with no acknowledged attestation lost.
 Last the analyzers (``analysis``): ``python -m
-protocol_tpu_torch.analysis`` with every pass but comm (the ``sharded``
-phase holds the comm budgets; the tests hold the comm leg on the CPU) in
-a subprocess, which must exit 0: every card backend's step captured in a
-CUDA graph with its launches on budget and one replay bit-equal, every
-converge's resident and transient bytes at two scales within its
-``MemBudget`` or waived by name (K9's lanes), every converge bit-equal
-across two runs and a fresh process, every waiver used; then the
-headline's windowed, CSR and COO peaks against the same formulas, and
-one runtime fixture of each kind (an extra kernel launch, an O(E)
-temporary, a run-order-dependent sum, a second all-reduce) run here,
+protocol_tpu_torch.analysis --zk`` with every pass but comm (the
+``sharded`` phase holds the comm budgets; the tests hold the comm leg on
+the CPU) in a subprocess, which must exit 0: every card backend's step
+captured in a CUDA graph with its launches on budget and one replay
+bit-equal, every converge's resident and transient bytes at two scales
+within its ``MemBudget`` or waived by name (K9's lanes), every converge
+bit-equal across two runs and a fresh process, every waiver used; and
+the graft leg: each of the five graft kernels (K10-K13) recorded with
+its launches and downloads as declared, measured at 1,024 and 2,048
+lanes within its ``MemBudget``, zero collectives, its output bit-equal
+twice and in the fresh process, and the three graft entries the same
+way; then the headline's windowed, CSR and COO peaks against the same
+formulas, and one runtime fixture of each kind (an extra kernel launch,
+an O(E) temporary, a run-order-dependent sum, a second all-reduce, a
+graft entry's second download, a graft kernel's extra buffer) run here,
 each caught.
 
-To stay inside the time limit with the ``analysis`` phase, three phases
-run shallower than they did before it: ``sharded`` at 65,536 peers on 4
-ranks instead of 8 (card and CPU), ``planes`` 2 ticks of each engine
-instead of 3, and ``pod``'s host-loss dry run 3 epochs instead of
+To stay inside the time limit with the ``analysis`` phase and its graft
+leg, four phases run shallower than they did before them: ``epochs``
+one churned epoch instead of 2, ``sharded`` at 65,536 peers on 4 ranks
+instead of 8 (card and CPU), ``planes`` 2 ticks of each engine instead
+of 3, and ``pod``'s host-loss dry run 3 epochs instead of
 ``POD_r01.json``'s 4.  Every kind of check they make is kept.
 
 Every phase prints its JSON lines.  Before the last line come the card's
@@ -2494,7 +2500,8 @@ ANALYSIS = dict(
     passes=("step", "ast", "concurrency", "memory", "determinism"), timeout_s=300,
     # One runtime fixture of each kind, run in this process, each caught.
     fixtures=(("step-extra-launch", {}), ("mem-o-e-temporary", {}), ("det-run-order", {}),
-              ("comm-two-all-reduces", {"ranks": 1})),
+              ("comm-two-all-reduces", {"ranks": 1}), ("zk-second-download", {}),
+              ("zk-extra-buffer", {})),
 )
 
 
@@ -2522,7 +2529,7 @@ def analysis_phase(headline_mem, check, emit, smi) -> dict:
     work.mkdir(parents=True, exist_ok=True)
     out = work / "ANALYSIS.json"
     out.unlink(missing_ok=True)
-    cmd = [sys.executable, "-m", "protocol_tpu_torch.analysis", "--device", "cuda",
+    cmd = [sys.executable, "-m", "protocol_tpu_torch.analysis", "--device", "cuda", "--zk",
            "--output", str(out)]
     for name in ANALYSIS["passes"]:
         cmd += ["--pass", name]
@@ -2579,6 +2586,8 @@ def analysis_phase(headline_mem, check, emit, smi) -> dict:
     det = {name: report["determinism"]["backends"][name]["bit_equal"] for name in backends}
     check(all(det.values()), f"analysis determinism: converges differ across runs: {det}")
 
+    zk = zk_readback(report, check)
+
     # Every waiver table evaluated in this run used every entry.
     stale = {p: report[p].get("stale_waivers") for p in ("ast", "concurrency", "memory", "determinism")}
     check(not any(stale.values()), f"analysis: stale waivers {stale}")
@@ -2620,10 +2629,62 @@ def analysis_phase(headline_mem, check, emit, smi) -> dict:
             launches[w] = launches.get(w, 0) + k
     emit("analysis", nvidia_smi=smi, seconds=time.perf_counter() - t_phase, subprocess_s=run_s,
          pass_seconds=report["seconds"], summary=report["summary"], steps=steps,
-         memory_scales=scales, headline_peaks=headline, determinism_bit_equal=det,
+         memory_scales=scales, headline_peaks=headline, determinism_bit_equal=det, zk=zk,
          waivers_used=waivers, fixtures=fixtures, launches=report["launches"],
          fixture_launches=fixture_launches)
     return launches
+
+
+def zk_readback(report, check) -> dict:
+    """The graft leg of an ``--zk`` analyzer report on the card, read
+    back: for each graft kernel (``zk.graft.ZK_KERNELS``), ``checked`` in
+    the step, memory and determinism sections; its recipe's launches and
+    downloads as declared; both lane counts measured within its
+    ``MemBudget`` (K13's two names against their sum); zero collectives;
+    its digests equal twice in this process and in the fresh one.  The
+    three graft entries likewise in the step and determinism sections.
+    Returns the phase line's ``zk`` record."""
+    from protocol_tpu_torch.analysis.zk_lowering import ZK_ENTRIES, ZK_LANES, zk_kernel_names
+
+    step, mem, det = report["step"]["zk"], report["memory"]["backends"], report["determinism"]["zk"]
+    out = {}
+    for name in [*zk_kernel_names(), *ZK_ENTRIES]:
+        s = step["kernels"].get(name) or step["entries"].get(name) or {}
+        d = det.get(name, {})
+        launches = s.get("launches") or {}
+        rec = {"recipe": s.get("recipe"), "launches": {w: k for w, k in launches.items() if k},
+               "host_copies": s.get("host_copies"),
+               "declared_host_copies": s.get("declared_host_copies"),
+               "step_violations": s.get("violations"), "bit_equal": d.get("bit_equal"),
+               "digest": d.get("fresh_process")}
+        check(s.get("status") == "checked" and d.get("status") == "checked"
+              and s.get("violations") == 0 and s.get("not_run") == []
+              and s.get("host_copies") == s.get("declared_host_copies")
+              and launches == {w: s["declared_launches"].get(w, 0) for w in launches}
+              and d.get("bit_equal") and d.get("in_process") == [d.get("fresh_process")] * 2,
+              f"analysis zk {name}: step {s}, determinism {d}")
+        if name in ZK_ENTRIES:
+            out[name] = rec
+            continue
+        m = mem.get(name, {})
+        rec["memory"] = [
+            {"lanes": r["dims"]["n"], "resident": r["measured"]["resident_bytes"],
+             "budget_resident": r["budget_resident_bytes"],
+             "transient": r["measured"]["transient_bytes"],
+             "budget_transient": r["budget_transient_bytes"],
+             "allocated_transient": r["meta"]["allocated_transient_bytes"],
+             "host_transfers": len(r["host_transfers"]), "violations": r["violations"]}
+            for r in m.get("scales", ())
+        ]
+        rec["collectives"] = m.get("collectives")
+        check(m.get("status") == "checked" and [r["lanes"] for r in rec["memory"]] == list(ZK_LANES)
+              and all(r["violations"] == 0 and r["host_transfers"] == 0
+                      and r["resident"] <= r["budget_resident"]
+                      and r["transient"] <= r["budget_transient"] for r in rec["memory"])
+              and m.get("collectives") == 0 and m.get("comm_violations") == 0,
+              f"analysis zk {name}: memory {m}")
+        out[name] = rec
+    return out
 
 
 POD = dict(hosts=2, seed=7, timeout_s=600,
@@ -3661,7 +3722,7 @@ def main() -> None:
               "cuda-csr": {"scores": csr_scores, "peak": csr_peak, "seconds": csr_seconds}}
     sharded_launches = sharded_phase(graph, single, check, emit, smi)
 
-    # -- 6. epochs: cold + churned epochs at 1% churn ----------------------
+    # -- 6. epochs: a cold and a churned epoch at 1% churn -----------------
     rng = np.random.default_rng(HEADLINE["seed"])
     cur = graph.drop_self_edges()
     del graph, g, plan, args
@@ -3677,7 +3738,7 @@ def main() -> None:
     # The pod phase (last) takes the cold graph, the first churned epoch and
     # the cold single-card fixed point from here.
     pod_in = dict(graph=cur, serial_plan_seconds=epoch_plan_seconds, kw=kw6)
-    for epoch in range(3):
+    for epoch in range(2):
         if epoch:
             rows, cur, _ = sender_centric_churn(rng, cur, cohort_size=cohort, deg=deg)
             b.delta_rows = rows

@@ -1,7 +1,7 @@
 """CLI: ``python -m protocol_tpu_torch.analysis`` — run graftlint on the port.
 
     python -m protocol_tpu_torch.analysis [--pass all|step|ast|concurrency|comm|memory|determinism ...]
-        [--device cuda|cpu] [--fixture NAME] [--list-fixtures] [--output PATH]
+        [--device cuda|cpu] [--zk] [--fixture NAME] [--list-fixtures] [--output PATH]
 
 Exit code 0 iff no unwaived error-severity finding; writes
 ``ANALYSIS.json`` (``--output``).  ``--pass`` may be given more than
@@ -11,6 +11,16 @@ the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` they raise — nothing falls back.  With ``--device cpu``
 they judge what the plain path can show and report the card-only rules
 as not run (``summary.not_run``), never as passed.
+
+``--zk`` extends the runtime legs to the graft prover's kernels
+(``zk.graft``, ``zk_lowering``'s recipes), as the reference's ``--zk``
+extends its compile passes: the step leg records each recipe's ops, the
+memory leg measures each kernel recipe at 1,024 and 2,048 lanes and
+counts its collectives (the comm section lists them), the determinism
+leg replays each recipe here and in the fresh process.  It is opt-in
+because K13's plain version takes ~8 s a call on the CPU, so the leg
+adds about a minute and a half there; the registry gate covers the
+graft kernels' budgets in every run.
 
 ``--fixture`` runs one seeded violation instead of the real tree; it
 exits 1 when the violation is caught (the gate's self-check), 3 when
@@ -44,6 +54,12 @@ def main(argv: list[str] | None = None) -> int:
                         help="pass(es) to run, repeatable (default: all)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default=None,
                         help="device of the runtime legs (default: the card)")
+    parser.add_argument(
+        "--zk", action="store_true",
+        help="extend the runtime legs (step, comm, memory, determinism) to the zk.graft "
+        "proving kernels; on the CPU their plain versions add about a minute and a half, so "
+        "only a run that asks covers them (the registry gate always covers their budgets)",
+    )
     parser.add_argument("--fixture", default=None,
                         help="run one seeded violation fixture instead of the real tree")
     parser.add_argument("--list-fixtures", action="store_true",
@@ -109,7 +125,7 @@ def main(argv: list[str] | None = None) -> int:
     if on_card and "determinism" in passes:
         from .determinism.checker import start_fresh_process
 
-        early["determinism"] = start_fresh_process(str(device))
+        early["determinism"] = start_fresh_process(str(device), args.zk)
 
     def timed(name, run):
         t0 = time.perf_counter()
@@ -119,13 +135,13 @@ def main(argv: list[str] | None = None) -> int:
         return section
 
     if "step" in passes:
-        from .step import CARD_RULES, run_step_pass
+        from .step import CARD_RULES, ZK_CARD_RULES, run_step_pass
 
-        section = timed("step", lambda: run_step_pass(device))
+        section = timed("step", lambda: run_step_pass(device, zk=args.zk))
         report.backends.update(section.pop("backends"))
         report.step = section
         if not on_card:
-            report.not_run["step"] = list(CARD_RULES)
+            report.not_run["step"] = list(CARD_RULES) + (list(ZK_CARD_RULES) if args.zk else [])
     if "ast" in passes:
         from .ast_rules import run_ast_pass
 
@@ -143,16 +159,28 @@ def main(argv: list[str] | None = None) -> int:
         from .memory import run_memory_pass
         from .memory.checker import MEASURED_RULES
 
-        report.memory = timed("memory", lambda: run_memory_pass(device, early.get("memory")))
+        report.memory = timed(
+            "memory", lambda: run_memory_pass(device, early.get("memory"), zk=args.zk))
         if not on_card:
             report.not_run["memory"] = list(MEASURED_RULES)
         if "rank_launches" in report.memory:
             report.launches["memory_ranks"] = report.memory["rank_launches"]
+    if args.zk and "comm" in passes:
+        # The graft kernels' collectives: counted by the memory leg when it
+        # ran, else here.
+        from .comm.checker import run_zk_comm
+
+        t0 = time.perf_counter()
+        findings, zk_comm = run_zk_comm(device, report.memory.get("zk_comm"))
+        report.extend(findings)
+        report.comm["backends"].update(zk_comm)
+        report.seconds["comm"] += time.perf_counter() - t0
     if "determinism" in passes:
         from .determinism import run_determinism_pass
 
         report.determinism = timed(
-            "determinism", lambda: run_determinism_pass(device, early.get("determinism")))
+            "determinism",
+            lambda: run_determinism_pass(device, early.get("determinism"), zk=args.zk))
         report.launches["fresh_process"] = report.determinism["fresh_process_launches"]
     if device is not None:
         report.launches["this_process"] = launches_since(before)

@@ -21,8 +21,14 @@ gloo stages an all-reduce of CUDA tensors through the host.
 The graft prover's kernels (``zk/graft/``) declare theirs as well
 (``ZK_INVARIANTS``): for each of the reference's registry names
 (``zk.graft.ZK_KERNELS``), the wrapper that counts its launches and how
-many launches one call of each graft entry makes, from the call's size.
-``chip_smoke.py`` holds every graft call's launches against them.
+many launches one call of each graft entry makes, from the call's size,
+with the gathers and scatters a call may run outside the kernels and the
+downloads each entry makes.  ``chip_smoke.py`` holds every graft call's
+launches against them.  Each of those names also declares a
+``MemBudget`` (its lanes are the N of the formulas) and a ``CommBudget``
+of no collective, next to its kernel, as the reference's do; the
+analyzers' graft leg (``analysis/zk_lowering.py``, ``--zk``) runs each
+kernel against all three.
 
 Every card backend, the sharded composites included, also declares its
 memory (``MEM_INVARIANTS``): the reference's resident and transient
@@ -127,6 +133,16 @@ class ZkKernelBudget:
     wrapper: str
     per_call: dict[str, Callable[..., int]] = field(default_factory=dict)
     notes: str = ""
+    #: Gather-family and scatter-family ops a call may run outside the
+    #: kernel wrappers (the reference's ``max_random_gathers`` and
+    #: ``max_scatters``; the port's permutes and bucket writes run inside
+    #: K12 and K13).
+    max_gathers: int = 0
+    max_scatters: int = 0
+    #: For each graft entry that downloads this kernel's result, a
+    #: function of the call's size giving the bytes of each device-to-host
+    #: copy one call makes; any other host read is a finding.
+    host_copies: dict[str, Callable[..., list[int]]] = field(default_factory=dict)
 
 
 #: registry name -> declared budget.  Populated by ``zk/graft/field.py``,
@@ -231,4 +247,15 @@ def expected_zk_launches(entry: str, **size) -> dict[str, int]:
         k = int(fn(**size))
         if out.setdefault(budget.wrapper, k) != k:
             raise ValueError(f"{budget.wrapper}: declared {out[budget.wrapper]} and {k} for {entry}")
+    return out
+
+
+def expected_zk_host_copies(entry: str, **size) -> list[int]:
+    """Bytes of each device-to-host copy one call of graft entry
+    ``entry`` of the given size declares, in the budgets' order."""
+    out: list[int] = []
+    for budget in ZK_INVARIANTS.values():
+        fn = budget.host_copies.get(entry)
+        if fn is not None:
+            out.extend(int(b) for b in fn(**size))
     return out

@@ -57,7 +57,7 @@ def step_graph(n: int = STEP_GRAPH[0], nnz: int = STEP_GRAPH[1], seed: int = STE
 
 
 def launch_counts() -> dict[str, int]:
-    """Every converge kernel's launches in this process so far."""
+    """Every kernel's launches in this process so far, by wrapper."""
     return {name: w.launches for name, w in kernel_wrappers().items()}
 
 
@@ -67,16 +67,20 @@ def launches_since(before: dict[str, int]) -> dict[str, int]:
 
 
 def kernel_wrappers() -> dict[str, Callable]:
-    """Every converge kernel's wrapper by name (each counts its launches
-    in ``launches``), as ``KernelBudget.launches_per_step`` names them."""
+    """Every kernel wrapper the runtime legs run, by name (each counts its
+    launches in ``launches``): the converge's, as
+    ``KernelBudget.launches_per_step`` names them, then the graft
+    prover's, as ``ZkKernelBudget.wrapper`` does."""
     from ..ops import gather_window as gw
     from ..ops import sparse as sp
+    from ..zk.graft import field, ntt, pippenger
 
     return {
         fn.__name__: fn
         for fn in (
             gw.gather_windowed, gw.prefix_bridge, sp.ds_cumsum_axis1,
             sp.block_total_scan, sp.rowsum_tail, sp.gather_ds_cumsum,
+            field.field_op, ntt.ntt_device, pippenger.msm_window, pippenger.msm_bucket,
         )
     }
 

@@ -21,6 +21,13 @@ composite's ``COMM_INVARIANTS`` budget:
 - **replica-group-coverage** — an all-reduce over a sub-group of the
   ranks: it completes only the rows of that sub-group.
 
+Under ``--zk`` the pass also lists each graft kernel
+(``zk.graft.ZK_KERNELS``), single-device by construction, held to its
+``CommBudget`` of no collective: the counters read around each of
+``zk_lowering``'s kernel recipes at both of its sizes, by the memory
+pass when it ran (``memory.checker.run_zk_memory``), else here, in this
+process (``run_zk_comm``).
+
 The reference's host-round-trip and donation rules have no counterpart:
 gloo stages a CUDA all-reduce through the host by design, and torch
 donates no buffer (ROADMAP §C).  Findings route through the enumerated,
@@ -195,6 +202,69 @@ def judge(cases: list[CommCase]) -> tuple[list[Finding], dict[str, Any]]:
     return findings, backends
 
 
+def judge_zk_collectives(label: str, kernels, lanes: int, counters: dict[str, int]
+                         ) -> tuple[list[Finding], dict[str, dict]]:
+    """The collectives one graft recipe made (``read_counters`` around
+    it) against the ``CommBudget`` of each registry name it stands for:
+    ``(findings, {name: record})``."""
+    findings: list[Finding] = []
+    records: dict[str, dict] = {}
+    for name in kernels:
+        budget = COMM_INVARIANTS.get(name)
+        if budget is None:
+            continue  # the step leg's registry gate reports it
+        case = CommCase(name, {"n": lanes, "n_shards": 1}, 1,
+                        {"all_reduce_sum": counters["calls"]}, counters["bytes"],
+                        counters["subgroup_calls"])
+        found, record = check_comm_case(budget, case)
+        findings.extend(found)
+        records[name] = dict(record, recipe=label)
+    return findings, records
+
+
+def zk_section(records: dict[str, list[dict]], source: str) -> dict[str, dict]:
+    """The comm section's entry of each graft kernel from its records."""
+    return {
+        name: {"status": "checked", "source": source, "scales": recs,
+               "collectives": sum(sum(r["calls_per_step"].values()) for r in recs),
+               "violations": sum(r["violations"] for r in recs),
+               "budget": {"calls_per_step": COMM_INVARIANTS[name].calls_per_step,
+                          "bytes_n": COMM_INVARIANTS[name].bytes_n,
+                          "notes": COMM_INVARIANTS[name].notes}}
+        for name, recs in records.items()
+    }
+
+
+def run_zk_comm(device, measured: dict[str, list[dict]] | None = None
+                ) -> tuple[list[Finding], dict[str, dict]]:
+    """Each graft kernel's collectives: ``measured``, the records the
+    memory pass judged (``memory.checker.run_zk_memory``), or else each of
+    ``zk_lowering``'s kernel recipes run here at both sizes between a
+    reset and a read of the counters, on one rank (this process).
+    Returns ``(findings, {name: comm section entry})``."""
+    import torch
+
+    from ..cases import host_threads
+    from ..zk_lowering import ZK_LANES, kernel_recipes
+
+    if measured is not None:
+        return [], zk_section(measured, "memory")
+    device = torch.device(device)
+    findings: list[Finding] = []
+    records: dict[str, list[dict]] = {}
+    with host_threads(device):
+        for lanes in ZK_LANES:
+            for recipe in kernel_recipes(device, lanes):
+                reset_counters()
+                recipe.call()
+                found, recs = judge_zk_collectives(recipe.label, recipe.kernels, lanes,
+                                                   read_counters())
+                findings.extend(found)
+                for name, rec in recs.items():
+                    records.setdefault(name, []).append(rec)
+    return findings, zk_section(records, "comm")
+
+
 def run_comm_pass(device) -> tuple[list[Finding], dict[str, Any]]:
     """Both sharded composites on ``COMM_RANKS`` gloo ranks of ``device``
     at each of ``COMM_SCALES``.  Returns ``(findings, comm section)``."""
@@ -226,5 +296,8 @@ __all__ = [
     "check_scaling",
     "comm_rank",
     "judge",
+    "judge_zk_collectives",
     "run_comm_pass",
+    "run_zk_comm",
+    "zk_section",
 ]

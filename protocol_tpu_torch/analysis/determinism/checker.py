@@ -14,7 +14,12 @@ legs hold that:
   (``replay.py``), and the three digests of the scores' bits, the
   iterations and the residual must be equal
   (``nondeterministic-converge`` within a process,
-  ``nondeterministic-process`` across processes).
+  ``nondeterministic-process`` across processes).  Under ``--zk`` every
+  graft recipe of ``zk_lowering`` (its four kernel recipes and three
+  entries) is held to the same two rules at 1,024 lanes from one seed,
+  its output digested bit for bit: K13's bucket grid limb for limb, as
+  two runs of the same kernel must agree (only against the plain
+  version are its buckets equal as points alone).
 - **Static**, the counterpart of the reference's nondeterministic-scatter
   scan: no floating-point atomic in the kernels' sources
   (``protocol_tpu_torch/ops/csrc/*.cu`` and ``*.cuh``): an ``atomicAdd``
@@ -142,24 +147,41 @@ def digest(out: tuple) -> str:
     return h.hexdigest()
 
 
-def check_replays(name: str, digests: list[str], fresh: str | None) -> list[Finding]:
-    """Judge one backend's digests: in this process, then a fresh one."""
+def check_replays(name: str, digests: list[str], fresh: str | None,
+                  what: str = "converge") -> list[Finding]:
+    """Judge one backend's (or graft recipe's: ``what``) digests: in this
+    process, then a fresh one."""
     findings = []
     if len(set(digests)) > 1:
         findings.append(_finding(
             "nondeterministic-converge",
-            f"{len(digests)} converges of the same inputs in one process gave "
+            f"{len(digests)} {what}s of the same inputs in one process gave "
             f"{len(set(digests))} different results: the bits depend on run order",
             name,
         ))
     if fresh is not None and digests and fresh != digests[0]:
         findings.append(_finding(
             "nondeterministic-process",
-            "a converge of the same inputs in a fresh process gave other bits than "
+            f"a {what} of the same inputs in a fresh process gave other bits than "
             "this process's: two hosts could seal different digests",
             name,
         ))
     return findings
+
+
+def zk_replays(in_process: dict[str, list[str]], fresh: dict[str, str]) -> dict[str, dict]:
+    """Each graft recipe's digests judged (``check_replays``), keyed by
+    the registry names each kernel recipe stands for (K13's two share
+    one: a kernel recipe's label is its names joined by ``+``) and by
+    entry name; each entry keeps its ``findings`` for the caller to take."""
+    out: dict[str, dict] = {}
+    for label, digests in in_process.items():
+        found = check_replays(label, digests, fresh.get(label), what="run")
+        entry = {"status": "checked", "recipe": label, "in_process": digests,
+                 "fresh_process": fresh.get(label), "bit_equal": not found}
+        for i, name in enumerate(label.split("+")):
+            out[name] = dict(entry, findings=found if i == 0 else [])
+    return out
 
 
 def replay_in_process(converge: Callable[[], tuple], runs: int = 2) -> list[str]:
@@ -167,13 +189,14 @@ def replay_in_process(converge: Callable[[], tuple], runs: int = 2) -> list[str]
     return [digest(converge()) for _ in range(runs)]
 
 
-def start_fresh_process(device: str) -> subprocess.Popen:
+def start_fresh_process(device: str, zk: bool = False) -> subprocess.Popen:
     """Start the replays in a fresh interpreter
-    (``python -m protocol_tpu_torch.analysis.determinism.replay``)."""
+    (``python -m protocol_tpu_torch.analysis.determinism.replay``, with
+    ``--zk`` where ``zk``)."""
     root = Path(__file__).resolve().parents[3]
     return subprocess.Popen(
         [sys.executable, "-m", "protocol_tpu_torch.analysis.determinism.replay",
-         "--device", device],
+         "--device", device, *(["--zk"] if zk else [])],
         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
 
@@ -192,16 +215,17 @@ def fresh_process_result(proc: subprocess.Popen, timeout_s: float = 300) -> dict
     return json.loads(out.strip().splitlines()[-1])
 
 
-def run_determinism_pass(device, child: subprocess.Popen | None = None
+def run_determinism_pass(device, child: subprocess.Popen | None = None, zk: bool = False
                          ) -> tuple[list[Finding], dict[str, Any]]:
     """The runtime leg on ``device`` (the card, or the plain path with
-    ``device="cpu"``), the atomics scan and the AST leg, through
+    ``device="cpu"``), with ``zk`` the graft recipes' replays too (the
+    section's ``zk``), the atomics scan and the AST leg, through
     ``DET_WAIVERS``.  ``child`` is the fresh replay process if the caller
-    started it early (``start_fresh_process``).  Returns ``(findings,
-    determinism section)``."""
+    started it early (``start_fresh_process``, with the same ``zk``).
+    Returns ``(findings, determinism section)``."""
     import torch
 
-    from .replay import converge_digests
+    from .replay import converge_digests, zk_digests
 
     device = torch.device(device)
     findings: list[Finding] = []
@@ -210,11 +234,12 @@ def run_determinism_pass(device, child: subprocess.Popen | None = None
     # own two; on the CPU the two would contend for the cores, so it runs
     # first.
     if child is None:
-        child = start_fresh_process(str(device))
+        child = start_fresh_process(str(device), zk)
     if device.type == "cpu":
         result = fresh_process_result(child)
     try:
         in_process = converge_digests(device, runs=2)
+        in_process_zk = zk_digests(device, runs=2) if zk else {}
     finally:
         if device.type != "cpu":
             result = fresh_process_result(child)
@@ -229,6 +254,9 @@ def run_determinism_pass(device, child: subprocess.Popen | None = None
             "fresh_process": fresh.get(name),
             "bit_equal": not case_findings,
         }
+    if zk:
+        section["zk"] = zk_replays(in_process_zk, result.get("zk_digests", {}))
+        findings.extend(f for entry in section["zk"].values() for f in entry.pop("findings"))
     atomics, n_sources = scan_atomics()
     findings.extend(atomics)
     section["kernel_sources_scanned"] = n_sources
@@ -252,4 +280,5 @@ __all__ = [
     "scan_atomics",
     "scan_atomics_source",
     "start_fresh_process",
+    "zk_replays",
 ]

@@ -1,13 +1,15 @@
 """The determinism pass's replays: every card backend's converge of the
-synthetic graph (``cases.step_graph``), digested.
+synthetic graph (``cases.step_graph``), digested; with ``--zk`` also
+every graft recipe's output (``zk_lowering``, at ``RECORD_LANES``).
 
-    python -m protocol_tpu_torch.analysis.determinism.replay --device cuda|cpu
+    python -m protocol_tpu_torch.analysis.determinism.replay --device cuda|cpu [--zk]
 
 prints one JSON object: ``digests``, backend -> digest, from one
-converge each in this (fresh) process, and this process's kernel
-``launches``; ``checker.run_determinism_pass`` compares the digests with
-two converges of its own.  The sharded composites run in a process
-group of one rank (``cases.single_rank_group``).
+converge each in this (fresh) process, ``zk_digests``, recipe -> digest
+(empty without ``--zk``), and this process's kernel ``launches``;
+``checker.run_determinism_pass`` compares the digests with two runs of
+its own.  The sharded composites run in a process group of one rank
+(``cases.single_rank_group``).
 """
 
 from __future__ import annotations
@@ -48,17 +50,39 @@ def converge_digests(device, runs: int = 1) -> dict:
     return out
 
 
+def zk_digests(device, runs: int = 1) -> dict:
+    """``{recipe label: [digest, ...]}``: ``runs`` calls of each graft
+    recipe (the kernel recipes, then the entries) on ``device`` at
+    ``RECORD_LANES`` lanes, from the same seed, each digested bit for bit."""
+    import torch
+
+    from ..cases import host_threads
+    from ..zk_lowering import RECORD_LANES, digest_output, entry_recipes, kernel_recipes
+
+    device = torch.device(device)
+    out: dict[str, list[str]] = {}
+    with host_threads(device):
+        for recipe in kernel_recipes(device, RECORD_LANES) + entry_recipes(device, RECORD_LANES):
+            out[recipe.label] = [digest_output(recipe.call()) for _ in range(runs)]
+    return out
+
+
 def main(argv: list[str] | None = None) -> int:
     from ..cases import launch_counts
 
     parser = argparse.ArgumentParser(
         prog="python -m protocol_tpu_torch.analysis.determinism.replay",
-        description="digest each card backend's converge of the analyzers' synthetic graph",
+        description="digest each card backend's converge of the analyzers' synthetic graph "
+        "(and with --zk each graft recipe's output)",
     )
     parser.add_argument("--device", required=True, choices=("cuda", "cpu"))
+    parser.add_argument("--zk", action="store_true",
+                        help="also digest every graft recipe's output")
     args = parser.parse_args(argv)
     digests = converge_digests(args.device, runs=1)
+    zk = zk_digests(args.device, runs=1) if args.zk else {}
     print(json.dumps({"digests": {name: d[0] for name, d in digests.items()},
+                      "zk_digests": {name: d[0] for name, d in zk.items()},
                       "launches": launch_counts()}))
     return 0
 

@@ -18,7 +18,11 @@ exit non-zero: the gate's self-check.
   holding an O(E) temporary (``mem``); a converge whose bits depend on
   run order (``det``); a sharded step with two all-reduces, one
   all-reduce of E bytes, or an all-reduce over a sub-group (``comm``,
-  on two ranks).  A fixture whose rule only the card can judge
+  on two ranks); and for the graft leg (``--zk``), a graft entry that
+  reads ``.item()`` or downloads twice (``step``), a kernel recipe that
+  holds an extra O(n) buffer past its ``MemBudget`` (``mem``) and one
+  whose output depends on an unseeded generator (``det``).  A fixture
+  whose rule only the card can judge
   (``card_only``) is not run on the CPU: ``run_fixture`` returns None.
 """
 
@@ -715,6 +719,103 @@ def _comm_fixture(which: str):
     return run
 
 
+# -- runtime fixtures: the graft leg -------------------------------------------
+
+
+def _zk_operands(device, n: int = 1024):
+    """Two canonical Fr operands and an NTT's input and plan at ``n``
+    lanes, from ``zk_lowering``'s seed."""
+    from .zk_lowering import kernel_recipes
+
+    mulmod, ntt_stage = kernel_recipes(device, n)[:2]
+    return mulmod.args, ntt_stage.args
+
+
+def _zk_step_fixture(device, label, call, entry=None, **size):
+    """``call`` judged by the step leg's graft rules as a recipe of the
+    mulmod's budget, or of graft entry ``entry`` at ``size``."""
+    from .budget import expected_zk_host_copies, expected_zk_launches
+    from .step import check_zk, record_zk
+    from .zk_lowering import ZkRecipe
+
+    if entry is None:
+        recipe = ZkRecipe(label, ("zk-graft-mulmod",), None, 1024, (), call, {"field_op": 1})
+    else:
+        recipe = ZkRecipe(label, (), entry, size["n"], (), call,
+                          expected_zk_launches(entry, **size),
+                          expected_zk_host_copies(entry, **size))
+    return check_zk(recipe, *record_zk(recipe, device))
+
+
+def _zk_item_read(device) -> list[Finding]:
+    """A multiply whose caller reads one limb of the product on the host."""
+    from ..zk.graft import field
+
+    (a, b), _ = _zk_operands(device)
+
+    def call():
+        out = field.mulmod_fr(a, b)
+        return out, out[0, 0].item()  # VIOLATION: zk-item-read
+
+    return _zk_step_fixture(device, "fixture", call)
+
+
+def _zk_second_download(device) -> list[Finding]:
+    """``ntt_limbs``'s work with its result downloaded twice, against the
+    entry's one declared download of 32 n bytes."""
+    from ..zk.graft import ntt
+    from ..zk.graft.field import tensor_to_u64
+
+    _, (x, plan) = _zk_operands(device)
+
+    def call():
+        y = ntt.ntt_device(x, plan, False)
+        first = tensor_to_u64(y)
+        second = y.cpu()  # VIOLATION: zk-second-download
+        return first, second
+
+    return _zk_step_fixture(device, "fixture", call, "ntt_limbs", n=x.shape[0], inverse=False)
+
+
+def _zk_extra_buffer(device) -> list[Finding]:
+    """The multiply with both operands copied into a live buffer of
+    64 B a lane, measured on the card against the mulmod's budget, whose
+    transient holds the product's 32 B a lane."""
+    import torch
+
+    from ..zk.graft import field
+    from .budget import MEM_INVARIANTS
+    from .memory.checker import check_mem_case, measure_zk
+    from .zk_lowering import ZkRecipe
+
+    (a, b), _ = _zk_operands(device)
+
+    def call():
+        both = torch.cat([a, b])  # VIOLATION: zk-extra-buffer
+        return field.mulmod_fr(a, b), both
+
+    recipe = ZkRecipe("fixture", ("zk-graft-mulmod",), None, a.shape[0], (a, b), call)
+    return check_mem_case(MEM_INVARIANTS["zk-graft-mulmod"], measure_zk(recipe))[0]
+
+
+def _zk_unseeded(device) -> list[Finding]:
+    """A multiply over its operand permuted by the process's global
+    generator, which no seed fixes: each run draws another order."""
+    import torch
+
+    from ..zk.graft import field
+    from .determinism.checker import check_replays
+    from .zk_lowering import digest_output
+
+    (a, b), _ = _zk_operands(device)
+
+    def call():
+        order = torch.randperm(a.shape[0], device=a.device)  # VIOLATION: zk-unseeded
+        return field.mulmod_fr(a[order], b)
+
+    return check_replays("fixture", [digest_output(call()) for _ in range(2)], None, what="run")
+
+
 FIXTURES: dict[str, Fixture] = {
     f.name: f
     for f in (
@@ -785,6 +886,12 @@ FIXTURES: dict[str, Fixture] = {
                 kind="comm"),
         Fixture("comm-subgroup", "replica-group-coverage", _comm_fixture("subgroup"), None,
                 kind="comm"),
+        Fixture("zk-item-read", "zk-host-read", _zk_item_read, "zk-item-read", kind="step"),
+        Fixture("zk-second-download", "zk-host-copy", _zk_second_download,
+                "zk-second-download", kind="step", card_only=True),
+        Fixture("zk-extra-buffer", "o-e-live-temporary", _zk_extra_buffer, "zk-extra-buffer",
+                kind="mem", card_only=True),
+        Fixture("zk-unseeded", "nondeterministic-converge", _zk_unseeded, None, kind="det"),
     )
 }
 

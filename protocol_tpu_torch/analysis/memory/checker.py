@@ -34,7 +34,13 @@ The rules, the reference's names:
 
 The reference's ``donation-peak-doubled`` has no counterpart: torch
 donates no buffer, so every N-vector a converge holds is counted in
-``transient_n`` (ROADMAP §C).  ``judge_peak`` holds a peak measured
+``transient_n`` (ROADMAP §C).  Under ``--zk`` the pass also measures
+each of ``zk_lowering``'s graft kernel recipes on the card at both of
+its sizes (``ZK_LANES``, 1,024 and 2,048 lanes) in the same way, judges
+them against their names' ``MEM_INVARIANTS`` budgets (K13's one call
+against the sum of the scan's and the bucket's), and reads the
+collective counters around each recipe, judged against the names'
+``CommBudget`` (``run_zk_memory``).  ``judge_peak`` holds a peak measured
 elsewhere (``chip_smoke.py``'s headline converges at 1M/50M) to the same
 formulas.  On the CPU the measurements are not run (there is no
 allocator peak to read), and the pass reports them so; its AST leg
@@ -44,6 +50,7 @@ the enumerated, stale-tested ``waivers.MEM_WAIVERS``.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import threading
 from dataclasses import dataclass, field
@@ -341,11 +348,97 @@ def measure_all(device, ranked: RankRun | None = None) -> tuple[list[MemCase], l
     return cases, rank_launches
 
 
-def run_memory_pass(device, ranked: RankRun | None = None) -> tuple[list[Finding], dict[str, Any]]:
+def summed_budget(label: str, names) -> MemBudget:
+    """One ``MemBudget`` whose every coefficient is the sum of ``names``'
+    (a call that two registry names share is judged against both)."""
+    budgets = [MEM_INVARIANTS[n] for n in names]
+    coefficients = {f.name: sum(getattr(b, f.name) for b in budgets)
+                    for f in dataclasses.fields(MemBudget) if f.type == "float"}
+    return MemBudget(label, notes=" | ".join(b.notes for b in budgets if b.notes), **coefficients)
+
+
+def measure_zk(recipe) -> MemCase:
+    """A graft kernel recipe (``zk_lowering.ZkRecipe``) measured on the
+    card as ``measure_case`` measures a converge: its arguments resident,
+    its call's requested peak transient."""
+    from ..cases import BackendCase
+
+    case = BackendCase(recipe.label, {"n": recipe.lanes, "n_shards": 1}, recipe.args,
+                       recipe.args[0], lambda t: t, lambda steps, tol: recipe.call(),
+                       meta={"lanes": recipe.lanes})
+    return measure_case(case)
+
+
+def run_zk_memory(device) -> tuple[list[Finding], dict[str, Any], dict[str, list[dict]]]:
+    """Each graft kernel recipe at both ``ZK_LANES`` sizes on ``device``:
+    on the card measured (``measure_zk``) and judged against its names'
+    summed ``MemBudget``; anywhere, the collective counters read around
+    the call and judged against each name's ``CommBudget``.  Returns
+    ``(findings, {name: memory section entry}, {name: comm records})``."""
+    import torch
+
+    from ..budget import COMM_INVARIANTS
+    from ..cases import host_threads
+    from ..comm.checker import judge_zk_collectives, read_counters, reset_counters
+    from ..zk_lowering import ZK_LANES, kernel_recipes
+
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    findings: list[Finding] = []
+    backends: dict[str, Any] = {}
+    comm: dict[str, list[dict]] = {}
+    with host_threads(device):
+        for lanes in ZK_LANES:
+            for recipe in kernel_recipes(device, lanes):
+                names = [n for n in recipe.kernels if n in MEM_INVARIANTS]
+                reset_counters()
+                if on_card:
+                    measured = measure_zk(recipe)
+                else:
+                    recipe.call()
+                found, recs = judge_zk_collectives(recipe.label, recipe.kernels, lanes,
+                                                   read_counters())
+                findings.extend(found)
+                for name, rec in recs.items():
+                    comm.setdefault(name, []).append(rec)
+                record = None
+                if on_card and names:
+                    budget = summed_budget(recipe.label, names)
+                    found, record = check_mem_case(budget, measured)
+                    findings.extend(found)
+                    record["recipe"] = recipe.label
+                for name in recipe.kernels:
+                    entry = backends.setdefault(name, {
+                        "status": "checked" if name in MEM_INVARIANTS else "undeclared",
+                        "recipe": recipe.label, "scales": [], "violations": 0,
+                        "shared_with": [n for n in recipe.kernels if n != name],
+                    })
+                    if record is not None:
+                        entry["scales"].append(record)
+                        entry["violations"] += record["violations"]
+    for name, entry in backends.items():
+        entry["collectives"] = sum(sum(r["calls_per_step"].values()) for r in comm.get(name, ()))
+        entry["comm_violations"] = sum(r["violations"] for r in comm.get(name, ()))
+        if name in MEM_INVARIANTS:
+            entry["budget"] = {k: v for k, v in MEM_INVARIANTS[name].__dict__.items()
+                               if k != "backend"}
+        if name in COMM_INVARIANTS:
+            entry["comm_budget"] = {"calls_per_step": COMM_INVARIANTS[name].calls_per_step,
+                                    "bytes_n": COMM_INVARIANTS[name].bytes_n}
+        if not on_card:
+            entry["not_run"] = list(MEASURED_RULES)
+            entry["reason"] = "peak memory is measured on the card; the collectives were counted"
+    return findings, backends, comm
+
+
+def run_memory_pass(device, ranked: RankRun | None = None, zk: bool = False
+                    ) -> tuple[list[Finding], dict[str, Any]]:
     """The measured leg on the card (``device`` a card; ``ranked``, the
     sharded ranks if the caller started them early) or its report as not
-    run (``device="cpu"``), then the AST leg, through ``MEM_WAIVERS``.
-    Returns ``(findings, memory section)``."""
+    run (``device="cpu"``), with ``zk`` the graft kernels' leg
+    (``run_zk_memory``; its comm records in the section's ``zk_comm``),
+    then the AST leg, through ``MEM_WAIVERS``.  Returns ``(findings,
+    memory section)``."""
     import torch
 
     from ..ast_rules import MEM_AST_RULES, run_mem_ast_pass
@@ -387,6 +480,10 @@ def run_memory_pass(device, ranked: RankRun | None = None) -> tuple[list[Finding
             section["backends"][name]["budget"] = {
                 k: v for k, v in budget.__dict__.items() if k != "backend"
             }
+    if zk:
+        zk_findings, zk_backends, section["zk_comm"] = run_zk_memory(device)
+        findings.extend(zk_findings)
+        section["backends"].update(zk_backends)
     ast_findings, n_files = run_mem_ast_pass()
     findings.extend(ast_findings)
     section["files_scanned"] = n_files
@@ -406,6 +503,9 @@ __all__ = [
     "judge_peak",
     "measure_all",
     "measure_case",
+    "measure_zk",
     "pod_budget_view",
     "run_memory_pass",
+    "run_zk_memory",
+    "summed_budget",
 ]

@@ -35,6 +35,10 @@ HOST_SYNC_OPS = frozenset(
     {"_local_scalar_dense", "item", "nonzero", "masked_select", "_unique", "_unique2",
      "unique_dim", "unique_consecutive", "unique_dim_consecutive"}
 )
+#: Ops that take an index list, which may hold a boolean mask: a mask's
+#: lanes are counted on the host (a ``nonzero`` inside the op), a sync on
+#: the card.
+MASK_INDEX_OPS = frozenset({"index", "index_put", "index_put_", "_index_put_impl_"})
 #: Copies whose destination may be the host.
 COPY_OPS = frozenset({"_to_copy", "to", "copy_", "_copy_from", "_copy_from_and_resize"})
 #: The gather family (random reads through an index tensor).
@@ -66,7 +70,7 @@ class OpRecord:
     line: int | None
     function: str | None
     in_kernel: str | None  # the kernel wrapper this op ran under, if any
-    bool_index: bool = False  # an ``index`` through a boolean mask
+    bool_index: bool = False  # an ``index`` or ``index_put`` through a boolean mask
 
     @property
     def wide(self) -> bool:
@@ -126,6 +130,23 @@ class Recording:
         return max(self.ops, key=lambda r: r.out_bytes, default=None)
 
 
+_RELATIVE: dict[str, str | None] = {}
+
+
+def _port_path(path: str) -> str | None:
+    """``path`` relative to the repository if it is a port source outside
+    this subpackage (or its fixtures), else None; memoized by path."""
+    try:
+        return _RELATIVE[path]
+    except KeyError:
+        pass
+    rel = None
+    if path.startswith(str(_PACKAGE)) and (not path.startswith(str(_ANALYSIS)) or path == _FIXTURES):
+        rel = str(Path(path).relative_to(_REPO))
+    _RELATIVE[path] = rel
+    return rel
+
+
 def _site(kernels: frozenset[str]) -> tuple[str | None, int | None, str | None, str | None]:
     """The innermost calling frame in the port outside this subpackage
     (but its fixtures), and the outermost kernel wrapper on the stack,
@@ -134,14 +155,13 @@ def _site(kernels: frozenset[str]) -> tuple[str | None, int | None, str | None, 
     site = None
     kernel = None
     while frame is not None:
-        path = frame.f_code.co_filename
-        if path.startswith(str(_PACKAGE)) and (
-            not path.startswith(str(_ANALYSIS)) or path == _FIXTURES
-        ):
+        code = frame.f_code
+        rel = _port_path(code.co_filename)
+        if rel is not None:
             if site is None:
-                site = (str(Path(path).relative_to(_REPO)), frame.f_lineno, frame.f_code.co_name)
-            if frame.f_code.co_name in kernels:
-                kernel = frame.f_code.co_name
+                site = (rel, frame.f_lineno, code.co_name)
+            if code.co_name in kernels:
+                kernel = code.co_name
         frame = frame.f_back
     if site is None:
         return None, None, None, kernel
@@ -170,7 +190,9 @@ class _Recorder(TorchDispatchMode):
             fresh = sum(
                 o.untyped_storage().nbytes() for o in outputs if not _aliases(o, inputs)
             )
-        bool_index = name == "index" and any(t.dtype == torch.bool for t in inputs[1:])
+        bool_index = name in MASK_INDEX_OPS and any(
+            isinstance(t, torch.Tensor) and t.dtype == torch.bool
+            for t in tree_leaves(args[1] if len(args) > 1 else ()))
         moved = fresh
         if name in COPY_OPS and outputs:
             moved = outputs[0].numel() * outputs[0].element_size()
@@ -199,7 +221,7 @@ class _Recorder(TorchDispatchMode):
 
 def record_ops(fn: Callable, *args, **kwargs):
     """``(fn(*args, **kwargs), Recording)``: the result, and every aten
-    op the call dispatched, each marked with the converge-kernel wrapper
+    op the call dispatched, each marked with the kernel wrapper
     (``cases.kernel_wrappers``) it ran under, if any."""
     from .cases import kernel_wrappers
 
@@ -213,6 +235,7 @@ __all__ = [
     "COPY_OPS",
     "GATHER_OPS",
     "HOST_SYNC_OPS",
+    "MASK_INDEX_OPS",
     "OpRecord",
     "Recording",
     "SCATTER_OPS",

@@ -26,11 +26,31 @@ and records what it dispatched (``record.record_ops``):
 With ``device="cpu"`` the card-only rules are reported as not run, never
 as passed.
 
+**The graft leg** (``--zk``; ``zk=True``): each recipe of
+``zk_lowering`` (the four kernel recipes and the three graft entries) run
+once at ``RECORD_LANES`` lanes under the recorder, judged against the
+budgets of the names it reaches:
+
+- **on any device**: no float64 outside the kernel wrappers
+  (``f64-dtype``); gathers and scatters outside them within
+  ``ZkKernelBudget.max_gathers`` / ``max_scatters`` (``gather-budget``,
+  ``scatter-budget``); no read of device data on the host but the
+  declared downloads (``zk-host-read``: a scalar read, a boolean index, a
+  data-dependent shape);
+- **on the card only**: the downloads are exactly the declared ones, by
+  count and bytes (``zk-host-copy``: ``ntt_limbs`` one of 32 n B,
+  ``msm_limbs`` one of the bucket grid, the rest none), and the launches
+  by wrapper are the declared ones (``zk-launch-budget``; an entry's are
+  ``budget.expected_zk_launches``).
+
+It runs behind ``--zk``: on the CPU the plain K13 dispatches ~158,000 ops
+at 1,024 lanes, half a minute under the recorder.
+
 **The registry gate** (with ``zk_lowering.ensure_budgets``'s part): every
 registered backend has a ``KernelBudget`` and a ``MemBudget`` or sits in
 ``HOST_BACKENDS``; every sharded backend has a ``CommBudget``; every
-``zk.graft.ZK_KERNELS`` name has a ``ZkKernelBudget``; a budget for a
-name nobody registers is a warning.
+``zk.graft.ZK_KERNELS`` name has a ``ZkKernelBudget``, a ``MemBudget``
+and a ``CommBudget``; a budget for a name nobody registers is a warning.
 """
 
 from __future__ import annotations
@@ -49,11 +69,13 @@ from .budget import (
     ZK_INVARIANTS,
     KernelBudget,
 )
-from .record import OpRecord, Recording, record_ops
+from .record import COPY_OPS, OpRecord, Recording, record_ops
 from .report import Finding
 
 #: Rules only a card can judge.
 CARD_RULES = ("launch-budget", "capture-failed", "replay-mismatch")
+#: The graft leg's rules that only a card can judge.
+ZK_CARD_RULES = ("zk-launch-budget", "zk-host-copy")
 
 
 def _finding(rule: str, message: str, backend: str | None, site: OpRecord | None = None,
@@ -208,16 +230,130 @@ def check_step(budget: KernelBudget, res: StepResult) -> list[Finding]:
     return findings
 
 
+def record_zk(recipe, device) -> tuple[Recording, dict[str, int] | None]:
+    """One call of a graft recipe (``zk_lowering.ZkRecipe``) on ``device``
+    under the recorder, after a warm call on the card (libraries, plans,
+    constants); and on the card its launches by wrapper."""
+    from .cases import launch_counts, launches_since
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        recipe.call()
+    before = launch_counts()
+    _, rec = record_ops(recipe.call)
+    return rec, launches_since(before) if on_card else None
+
+
+def check_zk(recipe, rec: Recording, launches: dict[str, int] | None) -> list[Finding]:
+    """Judge one graft recipe's recording against the budgets of the
+    names it reaches: its ops outside the kernel wrappers, and on the card
+    (``launches`` given) its downloads and launches."""
+    findings: list[Finding] = []
+    name = recipe.label
+    budgets = [ZK_INVARIANTS[k] for k in recipe.kernels if k in ZK_INVARIANTS]
+    outside = [r for r in rec.ops if r.in_kernel is None]
+    wide = [r for r in outside if r.wide]
+    if wide:
+        findings.append(_finding(
+            "f64-dtype",
+            f"{len(wide)} op(s) outside the graft kernels touch float64 ({wide[0].op} in "
+            f"{wide[0].function})", name, wide[0],
+        ))
+    for rule, ops, cap, what in (
+        ("gather-budget", rec.gathers, sum(b.max_gathers for b in budgets), "gather"),
+        ("scatter-budget", rec.scatters, sum(b.max_scatters for b in budgets), "scatter"),
+    ):
+        if len(ops) > cap:
+            findings.append(_finding(
+                rule,
+                f"{len(ops)} {what} op(s) outside the graft kernels exceed the declared "
+                f"budget of {cap} ({ops[-1].op} in {ops[-1].function})", name, ops[-1],
+            ))
+    reads = [r for r in rec.host_syncs if r.in_kernel is None]
+    copies = [r for r in reads if r.op in COPY_OPS]
+    others = [r for r in reads if r.op not in COPY_OPS]
+    if others:
+        findings.append(_finding(
+            "zk-host-read",
+            f"{len(others)} read(s) of device data on the host outside the declared "
+            f"downloads ({others[0].op} in {others[0].function}): a sync on the card",
+            name, others[0],
+        ))
+    if launches is None:
+        return findings
+    moved = [r.host_bytes for r in copies]
+    if moved != recipe.host_copies:
+        site = copies[len(recipe.host_copies)] if len(copies) > len(recipe.host_copies) else (
+            copies[0] if copies else None)
+        findings.append(_finding(
+            "zk-host-copy",
+            f"the call copied {moved} B to the host; its budgets declare "
+            f"{recipe.host_copies}", name, site,
+        ))
+    expected = {w: recipe.launches.get(w, 0) for w in launches}
+    if launches != expected:
+        findings.append(_finding(
+            "zk-launch-budget",
+            f"the call launched {launches}, the budgets declare {expected}", name,
+        ))
+    return findings
+
+
+def run_zk_leg(device) -> tuple[list[Finding], dict[str, Any]]:
+    """The graft leg: every ``zk_lowering`` recipe on ``device`` at
+    ``RECORD_LANES`` lanes, recorded once and judged (``check_zk``).
+    Returns ``(findings, section)``: each registry name's record under
+    ``kernels`` (K13's two names share one), each entry's under
+    ``entries``."""
+    from .zk_lowering import RECORD_LANES, entry_recipes, kernel_recipes
+
+    device = torch.device(device)
+    findings: list[Finding] = []
+    section: dict[str, Any] = {"lanes": RECORD_LANES, "kernels": {}, "entries": {}}
+    recipes = kernel_recipes(device, RECORD_LANES) + entry_recipes(device, RECORD_LANES)
+    for recipe in recipes:
+        t0 = time.perf_counter()
+        rec, launches = record_zk(recipe, device)
+        found = check_zk(recipe, rec, launches)
+        findings.extend(found)
+        outside = [r for r in rec.ops if r.in_kernel is None]
+        record = {
+            "status": "checked",
+            "recipe": recipe.label,
+            "device": str(device),
+            "ops": len(rec.ops),
+            "ops_outside_kernels": len(outside),
+            "gathers_outside_kernels": len(rec.gathers),
+            "scatters_outside_kernels": len(rec.scatters),
+            "f64_ops": sum(1 for r in outside if r.wide),
+            "host_reads": [r.to_dict() for r in rec.host_syncs if r.in_kernel is None],
+            "host_copies": [r.host_bytes for r in rec.host_syncs
+                            if r.in_kernel is None and r.op in COPY_OPS],
+            "declared_host_copies": recipe.host_copies,
+            "launches": launches,
+            "declared_launches": recipe.launches,
+            "violations": len(found),
+            "seconds": time.perf_counter() - t0,
+            "not_run": [] if launches is not None else list(ZK_CARD_RULES),
+        }
+        if recipe.entry is None:
+            for kernel in recipe.kernels:
+                section["kernels"][kernel] = record
+        else:
+            section["entries"][recipe.entry] = record
+    return findings, section
+
+
 def registry_findings() -> tuple[list[Finding], dict[str, Any]]:
     """The registry gate: every registered backend's budgets declared,
     every graft kernel's, and no budget for an unregistered name."""
     # The registry imports the kernel modules and parallel/sharded.py,
-    # which declare their budgets.
+    # which declare their budgets; ensure_budgets the graft kernels'.
     from ..trust.backend import registered_backends
-    from ..zk import graft
-    from ..zk.graft import field as _f, ntt as _n, pippenger as _p  # noqa: F401  (declare)
+    from .zk_lowering import ensure_budgets
 
     registry = registered_backends()
+    zk_names = ensure_budgets()
     findings: list[Finding] = []
 
     def err(rule, message, name, severity="error"):
@@ -236,30 +372,37 @@ def registry_findings() -> tuple[list[Finding], dict[str, Any]]:
         if name.startswith("cuda-sharded") and name not in COMM_INVARIANTS:
             err("undeclared-comm-budget", f"sharded backend {name!r} declares no CommBudget",
                 name)
-    for kernel in graft.registered_zk_kernels():
+    for kernel in zk_names:
         if kernel not in ZK_INVARIANTS:
             err("undeclared-zk-budget", f"graft kernel {kernel!r} declares no ZkKernelBudget",
                 kernel)
-    known = set(registry)
-    for table, label in ((KERNEL_INVARIANTS, "kernel"), (MEM_INVARIANTS, "memory"),
-                         (COMM_INVARIANTS, "comm")):
+        if kernel not in MEM_INVARIANTS:
+            err("undeclared-mem-budget", f"graft kernel {kernel!r} declares no MemBudget",
+                kernel)
+        if kernel not in COMM_INVARIANTS:
+            err("undeclared-comm-budget", f"graft kernel {kernel!r} declares no CommBudget",
+                kernel)
+    for table, label, known in ((KERNEL_INVARIANTS, "kernel", set(registry)),
+                                (MEM_INVARIANTS, "memory", set(registry) | set(zk_names)),
+                                (COMM_INVARIANTS, "comm", set(registry) | set(zk_names))):
         for name in sorted(set(table) - known):
             err("stale-budget", f"{label} budget declared for {name!r}, which is not a "
                 "registered backend", name, severity="warning")
-    for kernel in sorted(set(ZK_INVARIANTS) - set(graft.registered_zk_kernels())):
+    for kernel in sorted(set(ZK_INVARIANTS) - set(zk_names)):
         err("stale-budget", f"graft budget declared for {kernel!r}, which is not in "
             "zk.graft.ZK_KERNELS", kernel, severity="warning")
     section = {
         "registered": registry,
         "host_backends": sorted(HOST_BACKENDS),
-        "zk_kernels": list(graft.registered_zk_kernels()),
+        "zk_kernels": list(zk_names),
     }
     return findings, section
 
 
-def run_step_pass(device) -> tuple[list[Finding], dict[str, Any]]:
+def run_step_pass(device, zk: bool = False) -> tuple[list[Finding], dict[str, Any]]:
     """The registry gate, then one step of every card backend on
-    ``device`` (``"cuda"`` or ``"cpu"``).  Returns ``(findings, step
+    ``device`` (``"cuda"`` or ``"cpu"``), then with ``zk`` the graft leg
+    (``run_zk_leg``, the section's ``zk``).  Returns ``(findings, step
     section)``; the section's ``backends`` feed ANALYSIS.json's."""
     from .cases import build_case, card_backends, host_threads, single_rank_group, step_graph
 
@@ -295,6 +438,9 @@ def run_step_pass(device) -> tuple[list[Finding], dict[str, Any]]:
             with single_rank_group(device):
                 for name in sharded:
                     one(name)
+        if zk:
+            zk_findings, section["zk"] = run_zk_leg(device)
+            findings.extend(zk_findings)
     for name in HOST_BACKENDS:
         section["backends"][name] = {"status": "skipped", "reason": "host backend"}
     return findings, section
@@ -303,8 +449,12 @@ def run_step_pass(device) -> tuple[list[Finding], dict[str, Any]]:
 __all__ = [
     "CARD_RULES",
     "StepResult",
+    "ZK_CARD_RULES",
     "check_step",
+    "check_zk",
+    "record_zk",
     "registry_findings",
     "run_step",
     "run_step_pass",
+    "run_zk_leg",
 ]

@@ -287,12 +287,21 @@ def mulmod_fq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Declared launches (``analysis/budget.py``, kept next to the kernel):
-# K10 converts X and Y of a point cache into the Montgomery domain; the
-# NTT (K11) and the MSM (K12, K13) launch none.
+# Declared budgets (``analysis/budget.py``, kept next to the kernel).
+# Launches: K10 converts X and Y of a point cache into the Montgomery
+# domain; the NTT (K11) and the MSM (K12, K13) launch none.  Memory, per
+# lane of the analyzers' recipe ``mulmod_fr(a, b)``: the operands a and b
+# resident (two (n, 4) int64, 64 B), the (n, 4) result transient (32 B).
 # ---------------------------------------------------------------------------
 
-from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
+from ...analysis.budget import (  # noqa: E402
+    CommBudget,
+    MemBudget,
+    ZkKernelBudget,
+    declare_comm,
+    declare_mem,
+    declare_zk,
+)
 
 declare_zk(
     ZkKernelBudget(
@@ -304,5 +313,24 @@ declare_zk(
             "msm_limbs": lambda n: 0,
         },
         notes="to_mont of X and of Y of a point cache",
+    )
+)
+
+declare_comm(
+    CommBudget(
+        backend="zk-graft-mulmod",
+        notes="single-device field kernel: no wire, no host traffic",
+    )
+)
+
+declare_mem(
+    MemBudget(
+        backend="zk-graft-mulmod",
+        resident_n=64.0,  # a and b, (n, 4) int64 each
+        resident_const=4096.0,
+        transient_n=32.0,  # the (n, 4) int64 result
+        transient_const=4096.0,
+        notes="one thread an element, nothing but the result allocated; the "
+        "constants are slack, measured 0 at 1,024 and 2,048 lanes",
     )
 )

@@ -235,18 +235,49 @@ def ntt_limbs(arr: np.ndarray, root: int, inverse: bool) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Declared launches (``analysis/budget.py``, kept next to the kernel): one
-# K11 a pass, ``passes(n)`` passes; no K10.
+# Declared budgets (``analysis/budget.py``, kept next to the kernel).
+# Launches: one K11 a pass, ``passes(n)`` passes; no K10.  ``ntt_limbs``
+# downloads its result once (``tensor_to_u64``).  Memory, per lane of the
+# analyzers' recipe ``ntt_device(x, plan, inverse=True)``: x and the
+# cached plan resident (32 B and 32 (n - 1) B), the result transient
+# (32 B; the inverse's 1/n is a 32 B constant, cached at the first call).
 # ---------------------------------------------------------------------------
 
-from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
+from ...analysis.budget import (  # noqa: E402
+    CommBudget,
+    MemBudget,
+    ZkKernelBudget,
+    declare_comm,
+    declare_mem,
+    declare_zk,
+)
 
 declare_zk(
     ZkKernelBudget(
         kernel="zk-graft-ntt-stage",
         wrapper="ntt_device",
         per_call={"ntt_limbs": lambda n, inverse: passes(n) if n > 1 else 0},
+        host_copies={"ntt_limbs": lambda n, inverse: [32 * n] if n > 1 else []},
         notes="every butterfly stage in passes of log_tile(n) stages, the bit-reverse in the "
         "first pass's loads, the inverse's scale in the last pass's stores",
+    )
+)
+
+declare_comm(
+    CommBudget(
+        backend="zk-graft-ntt-stage",
+        notes="single-device field kernel: no wire, no host traffic",
+    )
+)
+
+declare_mem(
+    MemBudget(
+        backend="zk-graft-ntt-stage",
+        resident_n=64.0,  # x, and the (n - 1, 4) twiddle plan
+        resident_const=4096.0,
+        transient_n=32.0,  # the (n, 4) result
+        transient_const=4096.0,  # the 1/n constant where it is not cached yet
+        notes="both passes read x and write the result; the tiles live in "
+        "shared memory, so nothing else is allocated",
     )
 )

@@ -335,8 +335,9 @@ class PointCache:
         ident = torch.from_numpy(~raw.any(axis=1)).to(device)
         xm = FQ.to_mont(u64_to_tensor(raw[:, :4], device))
         ym = FQ.to_mont(u64_to_tensor(raw[:, 4:], device))
-        one = FQ.const(FQ.r, device).expand(padded, 4).clone()
-        one[ident] = 0
+        # A masked fill, not ``one[ident] = 0``: an index through a boolean
+        # mask counts its lanes on the host, a sync on the card.
+        one = FQ.const(FQ.r, device).expand(padded, 4).masked_fill(ident[:, None], 0)
         return cls(n, padded, torch.stack([xm, ym, one], dim=1).contiguous())
 
 
@@ -512,12 +513,30 @@ def msm(scalars, points) -> G1:
 
 
 # ---------------------------------------------------------------------------
-# Declared launches (``analysis/budget.py``, kept next to the kernels): one
-# K12 and one K13 call an MSM; K13's two launches carry the reference's
-# scan (fold, carry: the piece sums) and bucket kernels (the join).
+# Declared budgets (``analysis/budget.py``, kept next to the kernels).
+# Launches: one K12 and one K13 call an MSM; K13's two launches carry the
+# reference's scan (fold, carry: the piece sums) and bucket kernels (the
+# join).  ``msm_limbs`` downloads the bucket grid once.  Memory, per lane
+# of the analyzers' recipes: K12 ``msm_window(scalars)`` holds the (m, 4)
+# int64 scalars (32 B) and writes ``ds`` and ``perm``, (32, m) int32 each
+# (256 B); K13 ``msm_bucket(ds, perm, points)`` holds those and the
+# (m, 3, 4) int64 points (352 B) and allocates ``head`` and ``tail``,
+# (32, m / 2^PIECE_LOG, 3, 4) int64 each (384 B), and the (32, 256, 3, 4)
+# grid (786,432 B at any m): the scan's budget holds the pieces, the
+# bucket's the grid, and the one call is judged against their sum.
 # ---------------------------------------------------------------------------
 
-from ...analysis.budget import ZkKernelBudget, declare_zk  # noqa: E402
+from ...analysis.budget import (  # noqa: E402
+    CommBudget,
+    MemBudget,
+    ZkKernelBudget,
+    declare_comm,
+    declare_mem,
+    declare_zk,
+)
+
+#: Bytes of K13's bucket grid, (32, 256, 3, 4) int64: ``msm_limbs``'s one download.
+GRID_BYTES = WINDOWS * N_BUCKETS * 3 * 4 * 8
 
 
 def _one_an_msm(n: int) -> int:
@@ -550,6 +569,40 @@ declare_zk(
         kernel="zk-graft-msm-bucket",
         wrapper="msm_bucket",
         per_call={"msm_limbs": _k13_an_msm},
+        host_copies={"msm_limbs": lambda n: [GRID_BYTES] if n else []},
         notes="K13's join launch: the pieces of each bucket added, empty buckets zeroed, from_mont",
+    )
+)
+
+for _name, _what in (("zk-graft-msm-window", "sort"), ("zk-graft-msm-scan", "group fold"),
+                     ("zk-graft-msm-bucket", "bucket join")):
+    declare_comm(CommBudget(backend=_name, notes=f"single-device {_what}: no wire"))
+
+declare_mem(
+    MemBudget(
+        backend="zk-graft-msm-window",
+        resident_n=32.0,  # the (m, 4) int64 scalars
+        resident_const=4096.0,
+        transient_n=256.0,  # ds and perm, (32, m) int32 each
+        transient_const=4096.0,
+        notes="the sort's rounds live in shared memory; only its two outputs are allocated",
+    )
+)
+declare_mem(
+    MemBudget(
+        backend="zk-graft-msm-scan",
+        resident_n=352.0,  # ds and perm (256 B) and the (m, 3, 4) int64 points (96 B)
+        resident_const=4096.0,
+        transient_n=384.0,  # head and tail, (32, m / 16, 3, 4) int64 each
+        transient_const=4096.0,
+        notes="K13's piece partials, one head and one tail a piece of 16 lanes; judged with "
+              "zk-graft-msm-bucket's budget against their one shared call",
+    )
+)
+declare_mem(
+    MemBudget(
+        backend="zk-graft-msm-bucket",
+        transient_const=float(GRID_BYTES),  # the (32, 256, 3, 4) int64 grid
+        notes="the bucket grid at any m; its inputs are zk-graft-msm-scan's residents",
     )
 )

@@ -168,7 +168,8 @@ class TestViolationFixtures:
 
     def test_every_card_only_fixture_is_a_runtime_one(self):
         card = {n for n, f in FIXTURES.items() if f.card_only}
-        assert card == {"step-extra-launch", "mem-o-e-temporary"}
+        assert card == {"step-extra-launch", "mem-o-e-temporary", "zk-second-download",
+                        "zk-extra-buffer"}
 
     def test_cli_exit_codes(self, tmp_path, capsys):
         out = tmp_path / "fixture.json"

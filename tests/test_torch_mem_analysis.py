@@ -158,7 +158,11 @@ class TestChecker:
 
 class TestBudgets:
     def test_every_card_backend_declared(self):
-        assert set(card_backends()) <= set(MEM_INVARIANTS) <= set(registered_backends())
+        from protocol_tpu_torch.analysis.zk_lowering import ensure_budgets
+
+        # The graft kernels declare theirs too, by their registry names.
+        known = set(registered_backends()) | set(ensure_budgets())
+        assert set(card_backends()) <= set(MEM_INVARIANTS) <= known
         for budget in MEM_INVARIANTS.values():
             assert budget.donated_args == ()  # torch donates no buffer
 

@@ -86,7 +86,7 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "analysis.step", "analysis.fixtures", "analysis.report",
                 "analysis.concurrency.checker", "analysis.concurrency.witness",
                 "analysis.determinism.checker", "analysis.determinism.replay",
-                "analysis.memory.checker", "analysis.comm.checker"):
+                "analysis.memory.checker", "analysis.comm.checker", "analysis.zk_lowering"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 

@@ -474,8 +474,14 @@ class TestPipelinedNode:
             await node.start()
             assert node._pipeline is not None
             loop = asyncio.get_running_loop()
-            for k in (1, 2):
-                await loop.run_in_executor(None, node._pipeline.submit, Epoch(k))
+            await loop.run_in_executor(None, node._pipeline.submit, Epoch(1))
+            # The queue holds one epoch and a full queue coalesces, so epoch
+            # 2 goes in only once the worker has taken epoch 1.
+            deadline = 60.0
+            while not node._pipeline._queue.empty() and deadline > 0:
+                await asyncio.sleep(0.01)
+                deadline -= 0.01
+            await loop.run_in_executor(None, node._pipeline.submit, Epoch(2))
             deadline = 60.0
             while node._pipeline.completed < 2 and deadline > 0:
                 await asyncio.sleep(0.05)
