@@ -94,7 +94,19 @@ from the same proofs and the fold statement over them synthesized and
 satisfied (``zk.agg_circuit``, ``challenge_bits=16``, not proved); then
 ``python -m protocol_tpu_torch.node.server`` in a subprocess on the same
 checkpoint directory, serving the checkpointed proof and exiting on
-SIGTERM with its flight dump.  Then the client (``client``): the
+SIGTERM with its flight dump.  Then the acceptance drivers
+(``drivers``, ``protocol_tpu_torch.tools``), in a thread beside the
+``client`` and ``pod`` phases, joined after them, each driver a
+subprocess on the card: ``obs_dryrun`` (a node on ``cuda-sparse`` over HTTP at its 2 s
+epoch, every SLO objective green) beside ``obs_dryrun
+--seed-slo-violation``, which must exit 1, then ``crash_matrix --smoke
+--skip-pod-phase`` (children on ``cuda-csr`` killed at each of the 12
+fault points, the two torn writes and the crash inside recovery, each
+recovering every acknowledged attestation to the control's fixed point
+with its proofs, and ``python -m protocol_tpu_torch.node.server``
+SIGKILLed and restarted, ``/healthz`` walking ``recovering`` -> ``ok``),
+their K9, K6 and K8 launches summed from what each process reports.
+Then the client (``client``): the
 reference's whole user flow around the port's node on the card.  The
 plonk phase's prover generates the EVM verifier (one sample prove, then
 codegen), which must be the committed ``data/et_verifier.bin``; a port
@@ -151,7 +163,8 @@ K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on
 (``node_launches``), on the PLONK node's card converges
 (``plonk_launches``), on the planes phase's converges and in its graft
 worker (``planes_launches``), on the server's ticks
-(``server_launches``), on the client phase's tick (``client_launches``),
+(``server_launches``), in the drivers phase's children and nodes
+(``drivers_launches``), on the client phase's tick (``client_launches``),
 in the analysis phase, its subprocesses and fixtures included
 (``analysis_launches``),
 on each rank of the sharded headline
@@ -170,8 +183,10 @@ import concurrent.futures
 import json
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
+import threading
 import time
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -180,8 +195,16 @@ HEADLINE = dict(n=1_000_000, nnz=50_000_000, seed=7, iters=40)
 SMALL = dict(n=65_536, nnz=1_048_576, seed=0)
 
 
+_EMIT_LOCK = threading.Lock()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line, written whole (the ``drivers`` phase emits from a
+    thread of its own)."""
+    line = json.dumps({"phase": phase, **fields}) + "\n"
+    with _EMIT_LOCK:
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 def fail(msg: str) -> None:
@@ -2868,6 +2891,124 @@ def pod_phase(pod_in, check, emit, smi) -> list:
     return pod_launches
 
 
+DRIVERS = dict(
+    # The crash matrix at its smoke scale (120 peers, 600 events, 3
+    # epochs on cuda-csr), four entries (or the node phase) at a time,
+    # leaving half the host's 8 cores to the client and pod phases beside
+    # it.  The pod phase runs the same host-loss dry run, so the matrix
+    # skips its pod row here.
+    crash=["--smoke", "--skip-pod-phase", "--jobs", "4"], crash_timeout_s=600,
+    obs_timeout_s=240,
+    # The kernels every cuda-csr and cuda-sparse power step launches.
+    step_wrappers=("gather_ds_cumsum", "block_total_scan", "rowsum_tail"),
+)
+
+
+def drivers_phase(check, emit, smi) -> dict:
+    """The acceptance drivers on the card (``protocol_tpu_torch.tools``),
+    each a subprocess with ``--device cuda``: ``obs_dryrun`` and ``obs_dryrun
+    --seed-slo-violation`` side by side, then ``crash_matrix --smoke
+    --skip-pod-phase``.  Read back: the dryrun exited 0 with no failed
+    check and every SLO objective of its ``SLO.json`` green, the seeded
+    one exited 1 with only the seeded objective violating; the matrix
+    exited 0 with every fault point exercised, each entry ``ok`` with its
+    point and ``recovery_seconds``, and the node restart's ``/healthz``
+    walk ``recovering`` -> ``ok`` with its SLOs green.  The children's
+    and the nodes' kernel launches by wrapper (each reports its own) are
+    summed: K9, K6 and K8 must have launched, and nothing else.  Returns
+    them, for the ``kernels`` line."""
+    from protocol_tpu_torch.tools import obs_dryrun
+
+    t_phase = time.perf_counter()
+    work = HERE / "build" / "chip_smoke_drivers"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+
+    def run(module, args, log, timeout_s):
+        """The driver in a session of its own, so that at the time limit
+        its children and servers are killed with it."""
+        import signal
+
+        t0 = time.perf_counter()
+        with open(work / log, "w") as out:
+            proc = subprocess.Popen([sys.executable, "-m", module, "--device", "cuda", *args],
+                                    cwd=HERE, stdout=out, stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+                rc = f"killed at its {timeout_s} s limit"
+        return rc, time.perf_counter() - t0, (work / log).read_text()[-3000:]
+
+    dryrun = "protocol_tpu_torch.tools.obs_dryrun"
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        plain_f = pool.submit(run, dryrun, ["--out-dir", str(work / "obs")], "obs.log",
+                              DRIVERS["obs_timeout_s"])
+        seeded_f = pool.submit(run, dryrun, ["--out-dir", str(work / "obs_seeded"),
+                                             "--seed-slo-violation"], "obs_seeded.log",
+                               DRIVERS["obs_timeout_s"])
+        (obs_rc, obs_s, obs_log), (seeded_rc, seeded_s, seeded_log) = plain_f.result(), seeded_f.result()
+    check(obs_rc == 0, f"drivers: obs_dryrun exited {obs_rc}:\n{obs_log}")
+    check(seeded_rc == 1, f"drivers: obs_dryrun --seed-slo-violation exited {seeded_rc}:\n{seeded_log}")
+    obs = json.loads((work / "obs" / "DRYRUN.json").read_text())
+    slo = json.loads((work / "obs" / "SLO.json").read_text())
+    seeded = json.loads((work / "obs_seeded" / "DRYRUN.json").read_text())
+    objectives = {name: {k: o[k] for k in ("value", "target", "ok")}
+                  for name, o in slo["objectives"].items()}
+    check(obs["device"] == "cuda" and not obs["failed_checks"] and slo["ok"]
+          and all(o["ok"] for o in objectives.values())
+          and set(obs_dryrun.REQUIRED_OBJECTIVES) <= set(objectives),
+          f"drivers: obs_dryrun on {obs['device']}: failed {obs['failed_checks']}, SLO {objectives}")
+    check(seeded["device"] == "cuda" and not seeded["failed_checks"]
+          and seeded["violating"] == ["seeded-violation"],
+          f"drivers: the seeded dryrun: failed {seeded['failed_checks']}, violating {seeded['violating']}")
+
+    out = work / "CHAOS_smoke.json"
+    cm_rc, cm_s, cm_log = run("protocol_tpu_torch.tools.crash_matrix",
+                              [*DRIVERS["crash"], "--out", str(out)], "crash_matrix.log",
+                              DRIVERS["crash_timeout_s"])
+    check(cm_rc == 0, f"drivers: crash_matrix exited {cm_rc}:\n{cm_log}")
+    report = json.loads(out.read_text())
+    detail = report["entries_detail"]
+    entries = [{k: e.get(k) for k in ("point", "fault", "ok", "recovery_seconds", "crashed_at",
+                                      "lost_attestations", "score_l1")} for e in detail]
+    node = next((e for e in detail if e["point"] == "node.restart"), {})
+    check(report["ok"] and report["device"] == "cuda" and not report["not_exercised"]
+          and len(detail) == len(report["registry"]) + 3,
+          f"drivers: crash_matrix on {report['device']}, not exercised {report['not_exercised']}, "
+          f"{len(detail)} entries")
+    check(all(e["ok"] and e["recovery_seconds"] is not None for e in entries),
+          f"drivers: crash entries {entries}")
+    check(node.get("healthz_walk", [])[-1:] == ["ok"] and "recovering" in node.get("healthz_walk", ())
+          and node.get("slo_ok"), f"drivers: the node restart {node}")
+
+    launches = {}
+    for part in (report["launches"], obs["launches"], seeded["launches"]):
+        for w, k in part.items():
+            launches[w] = launches.get(w, 0) + k
+    step = DRIVERS["step_wrappers"]
+    check(all(launches.get(w, 0) > 0 for w in step)
+          and not any(k for w, k in launches.items() if w not in step),
+          f"drivers: the children's and nodes' launches {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    emit("drivers", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
+         obs_seconds=obs_s, obs_seeded_seconds=seeded_s, crash_matrix_seconds=cm_s,
+         obs={k: obs[k] for k in ("first_landed_s", "seconds", "epoch", "iterations",
+                                  "lineage_completions", "health")},
+         slo=objectives, seeded_violating=seeded["violating"],
+         crash_control=report["control"], wal_overhead=report["wal_overhead"],
+         crash_entries=entries,
+         node_restart={k: node.get(k) for k in ("healthz_walk", "boot_to_status_s",
+                                                 "restart_to_ok_s", "wal_replayed",
+                                                 "recovery_seconds", "slo_ok")},
+         median_recovery_seconds=report["entries"][0]["recovery_seconds"],
+         launches=launches, crash_launches=report["launches"], obs_launches=obs["launches"],
+         obs_seeded_launches=seeded["launches"])
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3905,12 +4046,21 @@ def main() -> None:
     # -- 13. server: the node daemon over the card converge and the planes -
     server_launches = server_phase(plonk_ctx, wrappers, check, emit, smi)
 
-    # -- 14. client: attest on a dev chain, prove on the card, verify on-chain
-    client_launches = client_phase(plonk_ctx, wrappers, check, emit, smi)
+    # -- 13b. drivers: the crash matrix and the obs dryrun on the card -----
+    # Their work is all in subprocesses (process starts, mostly), so the
+    # phase runs in a thread beside the client and pod phases and is
+    # joined after them; those two phases' host-clock seconds include the
+    # overlap.  A failed check there exits as anywhere else.
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as background:
+        drivers_f = background.submit(drivers_phase, check, emit, smi)
 
-    # -- 15. pod: 2 hosts over per-host plans, then host loss and resume ----
-    pod_launches = pod_phase(pod_in, check, emit, smi)
-    del pod_in
+        # -- 14. client: attest on a dev chain, prove on the card, verify on-chain
+        client_launches = client_phase(plonk_ctx, wrappers, check, emit, smi)
+
+        # -- 15. pod: 2 hosts over per-host plans, then host loss and resume
+        pod_launches = pod_phase(pod_in, check, emit, smi)
+        del pod_in
+        drivers_launches = drivers_f.result()
 
     # -- 16. analysis: the analyzers on the card, and the headline's peaks --
     analysis_launches = analysis_phase(headline_mem, check, emit, smi)
@@ -3963,6 +4113,7 @@ def main() -> None:
         entry["plonk_launches"] = plonk_launches.get(wrapper, 0)
         entry["planes_launches"] = planes_launches.get(wrapper, 0)
         entry["server_launches"] = server_launches.get(wrapper, 0)
+        entry["drivers_launches"] = drivers_launches.get(wrapper, 0)
         entry["client_launches"] = client_launches.get(wrapper, 0)
         entry["analysis_launches"] = analysis_launches.get(wrapper, 0)
         entry["pod_launches"] = [ranks.get(wrapper, 0) for ranks in pod_launches]

@@ -51,7 +51,7 @@ __version__ = "0.1.0"
 
 _SUBMODULES = (
     "analysis", "bench", "chaos", "client", "crypto", "evm", "models", "node", "obs", "ops",
-    "parallel", "prover", "trust", "utils", "zk",
+    "parallel", "prover", "tools", "trust", "utils", "zk",
 )
 
 

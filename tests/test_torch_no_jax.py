@@ -60,6 +60,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "protocol_tpu_torch.ops.gather_window" in loaded
     assert "protocol_tpu_torch.node.manager" in loaded
     assert "protocol_tpu_torch.zk.plonk" in loaded
+    assert "protocol_tpu_torch.tools.crash_matrix" in loaded
+    assert "protocol_tpu_torch.tools.obs_dryrun" in loaded
     assert [m for m in loaded if forbidden(m)] == []
 
 
@@ -68,7 +70,7 @@ def test_port_modules_walk_the_node_and_its_host_modules():
     not only the kernels' modules."""
     mods = set(port_modules())
     for sub in ("analysis", "chaos", "client", "crypto", "evm", "ingest", "node", "obs",
-                "parallel", "prover", "utils", "zk"):
+                "parallel", "prover", "tools", "utils", "zk"):
         assert f"protocol_tpu_torch.{sub}" in mods, sub
     for mod in ("node.manager", "node.pipeline", "node.checkpoint", "node.wal",
                 "crypto.native", "obs.watchers", "trust.native", "zk.proof", "prover.jobs",
@@ -86,7 +88,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "analysis.step", "analysis.fixtures", "analysis.report",
                 "analysis.concurrency.checker", "analysis.concurrency.witness",
                 "analysis.determinism.checker", "analysis.determinism.replay",
-                "analysis.memory.checker", "analysis.comm.checker", "analysis.zk_lowering"):
+                "analysis.memory.checker", "analysis.comm.checker", "analysis.zk_lowering",
+                "tools.crash_matrix", "tools.obs_dryrun"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -256,6 +259,33 @@ def test_the_client_cli_runs_with_jax_and_the_reference_unimportable(tmp_path):
     imported = [ln.rsplit("|", 1)[1].strip() for ln in out.stderr.splitlines()
                 if ln.startswith("import time:") and "|" in ln]
     for mod in ("protocol_tpu_torch.client.client", "protocol_tpu_torch.node.bootstrap"):
+        assert mod in imported, mod
+    assert [m for m in imported if forbidden(m)] == []
+
+
+def test_the_obs_dryrun_runs_with_jax_and_the_reference_unimportable(tmp_path):
+    """``python -m protocol_tpu_torch.tools.obs_dryrun --device cpu`` in a
+    process where ``jax``, ``jaxlib`` and ``protocol_tpu`` cannot be
+    imported: the node boots, ticks, proves and serves its scrape, the
+    run exits 0, and its import log names none of them."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['obs_dryrun', '--device', 'cpu', '--out-dir', sys.argv[1]]\n"
+        "runpy.run_module('protocol_tpu_torch.tools.obs_dryrun', run_name='__main__')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c", code, str(tmp_path)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=150,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert json.loads((tmp_path / "DRYRUN.json").read_text())["slo_ok"]
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    for mod in ("protocol_tpu_torch.tools", "protocol_tpu_torch.node.server",
+                "protocol_tpu_torch.obs.slo"):
         assert mod in imported, mod
     assert [m for m in imported if forbidden(m)] == []
 
