@@ -97,15 +97,25 @@ checkpoint directory, serving the checkpointed proof and exiting on
 SIGTERM with its flight dump.  Then the acceptance drivers
 (``drivers``, ``protocol_tpu_torch.tools``), in a thread beside the
 ``client`` and ``pod`` phases, joined after them, each driver a
-subprocess on the card: ``obs_dryrun`` (a node on ``cuda-sparse`` over HTTP at its 2 s
-epoch, every SLO objective green) beside ``obs_dryrun
---seed-slo-violation``, which must exit 1, then ``crash_matrix --smoke
---skip-pod-phase`` (children on ``cuda-csr`` killed at each of the 12
-fault points, the two torn writes and the crash inside recovery, each
-recovering every acknowledged attestation to the control's fixed point
-with its proofs, and ``python -m protocol_tpu_torch.node.server``
-SIGKILLed and restarted, ``/healthz`` walking ``recovering`` -> ``ok``),
-their K9, K6 and K8 launches summed from what each process reports.
+subprocess on the card.  Side by side first: ``obs_dryrun`` (a node on
+``cuda-sparse`` over HTTP at its 2 s epoch, every SLO objective green)
+and ``obs_dryrun --seed-slo-violation``, which must exit 1;
+``epoch_pipe`` (20,000 peers, 120,000 edges, 3 epochs at 1 % churn
+through ``EpochPipeline`` on ``cuda-windowed``: a cold epoch, then warm
+ones in fewer iterations on delta plans, nothing dropped, the warm fixed
+point within L1 1e-4 of a cold converge, each epoch's K1, K5-K8
+launches its iterations); ``divergence_probe --smoke`` (2 gloo pod
+hosts on the card replaying 2,048 peers / 16,384 edges / 3 epochs under
+two perturbed schedules: every WAL ack, manifest, epoch digest, score
+and proof sink identical, all ten legs) and ``divergence_probe --smoke
+--seed-divergence``, which must exit 1 with exactly its six digest legs
+tripped.  Then ``crash_matrix --smoke --skip-pod-phase`` (children on
+``cuda-csr`` killed at each of the 12 fault points, the two torn writes
+and the crash inside recovery, each recovering every acknowledged
+attestation to the control's fixed point with its proofs, and ``python
+-m protocol_tpu_torch.node.server`` SIGKILLed and restarted,
+``/healthz`` walking ``recovering`` -> ``ok``).  Their K9, K6, K8 and
+K1, K5, K7 launches are summed from what each process reports.
 Then the client (``client``): the
 reference's whole user flow around the port's node on the card.  The
 plonk phase's prover generates the EVM verifier (one sample prove, then
@@ -163,8 +173,8 @@ K2-K4, the graft prove for K10-K13 (``graft_launches``) — on the main path, on
 (``node_launches``), on the PLONK node's card converges
 (``plonk_launches``), on the planes phase's converges and in its graft
 worker (``planes_launches``), on the server's ticks
-(``server_launches``), in the drivers phase's children and nodes
-(``drivers_launches``), on the client phase's tick (``client_launches``),
+(``server_launches``), in the drivers phase's children, nodes, pipe
+and probe hosts (``drivers_launches``), on the client phase's tick (``client_launches``),
 in the analysis phase, its subprocesses and fixtures included
 (``analysis_launches``),
 on each rank of the sharded headline
@@ -2899,25 +2909,49 @@ DRIVERS = dict(
     # skips its pod row here.
     crash=["--smoke", "--skip-pod-phase", "--jobs", "4"], crash_timeout_s=600,
     obs_timeout_s=240,
-    # The kernels every cuda-csr and cuda-sparse power step launches.
-    step_wrappers=("gather_ds_cumsum", "block_total_scan", "rowsum_tail"),
+    # The divergence probe at the reference's CI scale (2,048 peers,
+    # 16,384 edges, 3 epochs; 2 gloo hosts sharing the card), plain and
+    # with the protocol seed moved; the epoch pipe at its defaults
+    # (20,000 peers, 120,000 edges, 1 % churn, 3 epochs).  The plain
+    # probe and the pipe also run their converges with the plain
+    # versions on the CPU on the same inputs (``--against-plain``).
+    probe=["--smoke"], probe_timeout_s=300,
+    pipe=["--against-plain"], pipe_timeout_s=240,
+    # The kernels every cuda-csr and cuda-sparse power step launches (the
+    # crash matrix and the obs dryrun), then those every cuda-windowed
+    # step adds (the probe's hosts and the pipe): K9, K6, K8; K1, K5, K7.
+    step_wrappers=("gather_ds_cumsum", "block_total_scan", "rowsum_tail",
+                   "gather_windowed", "ds_cumsum_axis1", "prefix_bridge"),
 )
 
 
 def drivers_phase(check, emit, smi) -> dict:
     """The acceptance drivers on the card (``protocol_tpu_torch.tools``),
-    each a subprocess with ``--device cuda``: ``obs_dryrun`` and ``obs_dryrun
-    --seed-slo-violation`` side by side, then ``crash_matrix --smoke
-    --skip-pod-phase``.  Read back: the dryrun exited 0 with no failed
-    check and every SLO objective of its ``SLO.json`` green, the seeded
-    one exited 1 with only the seeded objective violating; the matrix
-    exited 0 with every fault point exercised, each entry ``ok`` with its
-    point and ``recovery_seconds``, and the node restart's ``/healthz``
-    walk ``recovering`` -> ``ok`` with its SLOs green.  The children's
-    and the nodes' kernel launches by wrapper (each reports its own) are
-    summed: K9, K6 and K8 must have launched, and nothing else.  Returns
-    them, for the ``kernels`` line."""
-    from protocol_tpu_torch.tools import obs_dryrun
+    each a subprocess with ``--device cuda``.  First, side by side:
+    ``obs_dryrun`` and ``obs_dryrun --seed-slo-violation``, ``epoch_pipe
+    --against-plain``, ``divergence_probe --smoke --against-plain`` and
+    ``divergence_probe --smoke --seed-divergence``; then ``crash_matrix
+    --smoke --skip-pod-phase``.
+    Read back: the dryrun exited 0 with no failed check and every SLO
+    objective of its ``SLO.json`` green, the seeded one exited 1 with
+    only the seeded objective violating; the pipe exited 0 with no failed
+    check (among them each epoch's K1, K5-K8 launches, its iterations
+    times the windowed budget and nothing else), a cold epoch 0, fewer
+    iterations in every warm epoch, a delta plan in each, and every
+    converge held against the plain versions on the CPU on the same
+    inputs: equal iterations, L1 within the node's 1e-6; the probe
+    exited 0 with its ten legs true (each host under its schedule and on
+    budget: ``workers_ok``) and host 0's iterations, plan outcomes,
+    residuals and scores as in the plain replay on the CPU, the seeded
+    probe exited 1 with exactly its six digest legs false; the matrix exited 0
+    with every fault point exercised, each entry ``ok`` with its point
+    and ``recovery_seconds``, and the node restart's ``/healthz`` walk
+    ``recovering`` -> ``ok`` with its SLOs green.  The children's, the
+    nodes', the pipe's and the probe hosts' kernel launches by wrapper
+    (each reports its own) are summed: the CSR step's K9, K6, K8 and the
+    windowed step's K1, K5-K8 must have launched, and nothing else.
+    Returns them, for the ``kernels`` line."""
+    from protocol_tpu_torch.tools import divergence_probe, epoch_pipe, obs_dryrun
 
     t_phase = time.perf_counter()
     work = HERE / "build" / "chip_smoke_drivers"
@@ -2943,13 +2977,26 @@ def drivers_phase(check, emit, smi) -> dict:
         return rc, time.perf_counter() - t0, (work / log).read_text()[-3000:]
 
     dryrun = "protocol_tpu_torch.tools.obs_dryrun"
-    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
-        plain_f = pool.submit(run, dryrun, ["--out-dir", str(work / "obs")], "obs.log",
-                              DRIVERS["obs_timeout_s"])
-        seeded_f = pool.submit(run, dryrun, ["--out-dir", str(work / "obs_seeded"),
-                                             "--seed-slo-violation"], "obs_seeded.log",
-                               DRIVERS["obs_timeout_s"])
-        (obs_rc, obs_s, obs_log), (seeded_rc, seeded_s, seeded_log) = plain_f.result(), seeded_f.result()
+    probe = "protocol_tpu_torch.tools.divergence_probe"
+    with concurrent.futures.ThreadPoolExecutor(max_workers=5) as pool:
+        futures = {
+            "obs": pool.submit(run, dryrun, ["--out-dir", str(work / "obs")], "obs.log",
+                               DRIVERS["obs_timeout_s"]),
+            "obs_seeded": pool.submit(run, dryrun, ["--out-dir", str(work / "obs_seeded"),
+                                                    "--seed-slo-violation"], "obs_seeded.log",
+                                      DRIVERS["obs_timeout_s"]),
+            "pipe": pool.submit(run, "protocol_tpu_torch.tools.epoch_pipe",
+                                [*DRIVERS["pipe"], "--out", str(work / "EPOCH_PIPE.json")],
+                                "epoch_pipe.log", DRIVERS["pipe_timeout_s"]),
+            "probe": pool.submit(run, probe, [*DRIVERS["probe"], "--against-plain",
+                                              "--out", str(work / "DET.json")],
+                                 "probe.log", DRIVERS["probe_timeout_s"]),
+            "probe_seeded": pool.submit(run, probe, [*DRIVERS["probe"], "--seed-divergence",
+                                                     "--out", str(work / "DET_seeded.json")],
+                                        "probe_seeded.log", DRIVERS["probe_timeout_s"]),
+        }
+        done = {name: f.result() for name, f in futures.items()}
+    (obs_rc, obs_s, obs_log), (seeded_rc, seeded_s, seeded_log) = done["obs"], done["obs_seeded"]
     check(obs_rc == 0, f"drivers: obs_dryrun exited {obs_rc}:\n{obs_log}")
     check(seeded_rc == 1, f"drivers: obs_dryrun --seed-slo-violation exited {seeded_rc}:\n{seeded_log}")
     obs = json.loads((work / "obs" / "DRYRUN.json").read_text())
@@ -2964,6 +3011,45 @@ def drivers_phase(check, emit, smi) -> dict:
     check(seeded["device"] == "cuda" and not seeded["failed_checks"]
           and seeded["violating"] == ["seeded-violation"],
           f"drivers: the seeded dryrun: failed {seeded['failed_checks']}, violating {seeded['violating']}")
+
+    # -- the epoch pipe: warm churned epochs by delta plans, on budget -------
+    pipe_rc, pipe_s, pipe_log = done["pipe"]
+    check(pipe_rc == 0, f"drivers: epoch_pipe exited {pipe_rc}:\n{pipe_log}")
+    pipe = json.loads((work / "EPOCH_PIPE.json").read_text())
+    epochs, plain = pipe["per_epoch"], pipe["against_plain"]
+    check(pipe["ok"] and not pipe["failed_checks"] and pipe["device"] == "cuda" and len(epochs) == 3,
+          f"drivers: epoch_pipe on {pipe['device']}: failed {pipe['failed_checks']}")
+    check(plain is not None and len(plain["converges"]) == len(epochs) + 1
+          and [c["iterations"] for c in plain["converges"][:-1]] == [e["iterations"] for e in epochs]
+          and all(c["l1"] <= epoch_pipe.PLAIN_L1 for c in plain["converges"]),
+          f"drivers: epoch_pipe against the plain versions: {plain}")
+    check(not epochs[0]["warm"] and epochs[0]["plan_outcome"] == ["rebuild"]
+          and all(e["warm"] and e["plan_outcome"] == ["delta"]
+                  and e["iterations"] < pipe["cold_iterations"] for e in epochs[1:])
+          and pipe["plan_delta_applies"] >= len(epochs) - 1
+          and pipe["dropped_ticks"] == 0 and pipe["coalesced_ticks"] == 0
+          and pipe["warm_vs_cold_l1"] <= 1e-4,
+          f"drivers: epoch_pipe's epochs {[(e['iterations'], e['warm'], e['plan_outcome']) for e in epochs]}, "
+          f"L1 {pipe['warm_vs_cold_l1']}")
+
+    # -- the divergence probe and its self-check ------------------------------
+    probe_rc, probe_s, probe_log = done["probe"]
+    div_rc, div_s, div_log = done["probe_seeded"]
+    check(probe_rc == 0, f"drivers: divergence_probe exited {probe_rc}:\n{probe_log}")
+    check(div_rc == 1, f"drivers: divergence_probe --seed-divergence exited {div_rc}:\n{div_log}")
+    det = json.loads((work / "DET.json").read_text())
+    det_seeded = json.loads((work / "DET_seeded.json").read_text())
+    legs, seeded_legs = det["comparison"]["legs"], det_seeded["comparison"]["legs"]
+    check(det["ok"] and det["device"] == "cuda" and len(legs) == 10 and all(legs.values())
+          and det["mesh"] == "2x1",
+          f"drivers: divergence_probe on {det['device']}: legs {legs}")
+    det_plain = det["against_plain"] or {}
+    check(det_plain.get("ok") and det_plain["iterations"] == det["runs"][0]["iterations"],
+          f"drivers: divergence_probe against the plain replay: {det_plain}")
+    check(det_seeded["device"] == "cuda" and len(seeded_legs) == 10
+          and sorted(k for k, v in seeded_legs.items() if not v)
+          == sorted(divergence_probe.DIGEST_LEGS),
+          f"drivers: the seeded probe's legs {seeded_legs}")
 
     out = work / "CHAOS_smoke.json"
     cm_rc, cm_s, cm_log = run("protocol_tpu_torch.tools.crash_matrix",
@@ -2985,19 +3071,33 @@ def drivers_phase(check, emit, smi) -> dict:
           and node.get("slo_ok"), f"drivers: the node restart {node}")
 
     launches = {}
-    for part in (report["launches"], obs["launches"], seeded["launches"]):
+    parts = (report["launches"], obs["launches"], seeded["launches"], pipe["launches"],
+             det["launches"], det_seeded["launches"])
+    for part in parts:
         for w, k in part.items():
             launches[w] = launches.get(w, 0) + k
     step = DRIVERS["step_wrappers"]
     check(all(launches.get(w, 0) > 0 for w in step)
           and not any(k for w, k in launches.items() if w not in step),
-          f"drivers: the children's and nodes' launches {launches}")
+          f"drivers: the children's, nodes', pipe's and probe hosts' launches {launches}")
     shutil.rmtree(work, ignore_errors=True)
     emit("drivers", nvidia_smi=smi, seconds=time.perf_counter() - t_phase,
          obs_seconds=obs_s, obs_seeded_seconds=seeded_s, crash_matrix_seconds=cm_s,
+         epoch_pipe_seconds=pipe_s, probe_seconds=probe_s, probe_seeded_seconds=div_s,
          obs={k: obs[k] for k in ("first_landed_s", "seconds", "epoch", "iterations",
                                   "lineage_completions", "health")},
          slo=objectives, seeded_violating=seeded["violating"],
+         epoch_pipe={k: pipe[k] for k in ("cold_iterations", "warm_iterations",
+                                          "plan_delta_applies", "warm_vs_cold_l1", "seconds")},
+         epoch_pipe_epochs=[{k: e[k] for k in ("epoch", "seconds", "iterations", "plan_outcome")}
+                            for e in epochs],
+         probe_legs=legs, probe_seeded_failed_legs=sorted(k for k, v in seeded_legs.items() if not v),
+         probe_schedule_seconds=det["entries"][0]["per_schedule_seconds"],
+         probe_seeded_schedule_seconds=det_seeded["entries"][0]["per_schedule_seconds"],
+         probe_iterations=[r["iterations"] for r in det["runs"]],
+         epoch_pipe_against_plain=plain["converges"],
+         probe_against_plain={k: det_plain[k] for k in ("seconds", "iterations", "residual_diff",
+                                                         "epoch_l1", "final_l1")},
          crash_control=report["control"], wal_overhead=report["wal_overhead"],
          crash_entries=entries,
          node_restart={k: node.get(k) for k in ("healthz_walk", "boot_to_status_s",
@@ -3005,7 +3105,8 @@ def drivers_phase(check, emit, smi) -> dict:
                                                  "recovery_seconds", "slo_ok")},
          median_recovery_seconds=report["entries"][0]["recovery_seconds"],
          launches=launches, crash_launches=report["launches"], obs_launches=obs["launches"],
-         obs_seeded_launches=seeded["launches"])
+         obs_seeded_launches=seeded["launches"], epoch_pipe_launches=pipe["launches"],
+         probe_launches=det["launches"], probe_seeded_launches=det_seeded["launches"])
     return launches
 
 
@@ -4046,7 +4147,8 @@ def main() -> None:
     # -- 13. server: the node daemon over the card converge and the planes -
     server_launches = server_phase(plonk_ctx, wrappers, check, emit, smi)
 
-    # -- 13b. drivers: the crash matrix and the obs dryrun on the card -----
+    # -- 13b. drivers: the obs dryrun, the epoch pipe, the divergence probe
+    # and the crash matrix on the card
     # Their work is all in subprocesses (process starts, mostly), so the
     # phase runs in a thread beside the client and pod phases and is
     # joined after them; those two phases' host-clock seconds include the

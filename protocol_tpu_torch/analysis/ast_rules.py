@@ -1207,8 +1207,10 @@ AST_WAIVERS: tuple[Waiver, ...] = (
         symbol="device-kernel tree",
         reason=(
             "run_ranks reads a monotonic clock for its launch deadline "
-            "(ranks still running at timeout_s are killed), not to time "
-            "a kernel.  It spawns processes and runs in no step.  "
+            "(ranks still running at timeout_s are killed) and sleeps "
+            "stagger_s between two rank starts when a caller's schedule "
+            "asks for it; neither times a kernel.  It spawns processes "
+            "and runs in no step.  "
             "ROADMAP A13 moves the launcher out of the kernel trees with "
             "the dry runs."
         ),

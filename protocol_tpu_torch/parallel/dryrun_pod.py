@@ -74,7 +74,7 @@ import torch.distributed as dist
 
 from ..analysis.budget import COMM_INVARIANTS, KERNEL_INVARIANTS
 from .dryrun import SOURCES, WRAPPERS, _graph, _sync, loaded_modules, step_wall_ms
-from .launch import run_ranks
+from .launch import rank_schedule, run_ranks
 from .mesh import ShardGroup
 from .pod import PodContext, PodWindowPlan
 from .sharded import ShardedWindowPlan, all_reduce_sum, converge_sharded
@@ -436,6 +436,7 @@ def worker_rank(mesh: ShardGroup, params: dict, state_dir: str, resume: bool = F
         "final_scores": scores,
         "l1": float(scores.sum()),
         "loaded_forbidden": forbidden,
+        "schedule": rank_schedule(),
         "ok": bool(ok),
     }
 
@@ -586,12 +587,15 @@ def pod_plans_rank(mesh: ShardGroup, steps: list, seed: int, sharded: bool = Fal
 
 def launch_pod(params: dict, hosts: int, state_dir: Path, *, device: str, backend: str,
                timeout_s: float, resume: bool = False, crash_host: int = -1,
-               crash_epoch: int = -1) -> list[dict]:
+               crash_epoch: int = -1, **schedule) -> list[dict]:
     """The pod's hosts as ranks of one group; their reports.  Raises
-    where a host fails (``run_ranks`` kills the others)."""
+    where a host fails (``run_ranks`` kills the others).  ``schedule``
+    passes ``run_ranks``'s start order, stagger, threads and environment
+    through."""
     state_dir.mkdir(parents=True, exist_ok=True)
     return run_ranks(hosts, worker_rank, params, str(state_dir), resume, crash_host,
-                     crash_epoch, backend=backend, device=device, timeout_s=timeout_s)
+                     crash_epoch, backend=backend, device=device, timeout_s=timeout_s,
+                     **schedule)
 
 
 def bit_identity(workers: list[dict]) -> dict:

@@ -8,7 +8,16 @@ guarantees.
   protocol_tpu_torch.tools.crash_matrix``);
 - ``obs_dryrun``: one node over HTTP, its observability surface scraped
   and every SLO objective held green (``python -m
-  protocol_tpu_torch.tools.obs_dryrun``).
+  protocol_tpu_torch.tools.obs_dryrun``);
+- ``divergence_probe``: the 2-host churned pod replay run twice under
+  perturbed schedules (hash seed, thread count, launch order, fleet
+  scrape interleaving), every durability sink, score and proof
+  bit-identical across the runs; ``--seed-divergence`` must exit 1
+  (``python -m protocol_tpu_torch.tools.divergence_probe``);
+- ``epoch_pipe``: churned epochs through ``EpochPipeline`` on
+  ``cuda-windowed``, each warm one in fewer iterations than the cold one
+  on a delta plan, no tick dropped, the warm fixed point on the cold one
+  (``python -m protocol_tpu_torch.tools.epoch_pipe``).
 
 They keep clocks and spawn processes, so they live outside the kernel
 trees (``analysis/ast_rules.py::KERNEL_TREES``).  The sharded and pod

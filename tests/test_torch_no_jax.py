@@ -62,6 +62,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "protocol_tpu_torch.zk.plonk" in loaded
     assert "protocol_tpu_torch.tools.crash_matrix" in loaded
     assert "protocol_tpu_torch.tools.obs_dryrun" in loaded
+    assert "protocol_tpu_torch.tools.divergence_probe" in loaded
+    assert "protocol_tpu_torch.tools.epoch_pipe" in loaded
     assert [m for m in loaded if forbidden(m)] == []
 
 
@@ -89,7 +91,8 @@ def test_port_modules_walk_the_node_and_its_host_modules():
                 "analysis.concurrency.checker", "analysis.concurrency.witness",
                 "analysis.determinism.checker", "analysis.determinism.replay",
                 "analysis.memory.checker", "analysis.comm.checker", "analysis.zk_lowering",
-                "tools.crash_matrix", "tools.obs_dryrun"):
+                "tools.crash_matrix", "tools.obs_dryrun", "tools.divergence_probe",
+                "tools.epoch_pipe"):
         assert f"protocol_tpu_torch.{mod}" in mods, mod
 
 
@@ -286,6 +289,37 @@ def test_the_obs_dryrun_runs_with_jax_and_the_reference_unimportable(tmp_path):
                 if ln.startswith("import time:") and "|" in ln]
     for mod in ("protocol_tpu_torch.tools", "protocol_tpu_torch.node.server",
                 "protocol_tpu_torch.obs.slo"):
+        assert mod in imported, mod
+    assert [m for m in imported if forbidden(m)] == []
+
+
+def test_the_epoch_pipe_runs_with_jax_and_the_reference_unimportable(tmp_path):
+    """``python -m protocol_tpu_torch.tools.epoch_pipe --device cpu`` in a
+    process where ``jax``, ``jaxlib`` and ``protocol_tpu`` cannot be
+    imported: its epochs land, it exits 0, and its import log names none
+    of them."""
+    code = (
+        "import runpy, sys\n"
+        f"for name in {FORBIDDEN!r}:\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['epoch_pipe', '--device', 'cpu', '--peers', '2000', '--edges', '12000',\n"
+        "            '--out', sys.argv[1]]\n"
+        "runpy.run_module('protocol_tpu_torch.tools.epoch_pipe', run_name='__main__')\n"
+    )
+    # One intra-op thread: beside other test processes, a pool of one
+    # thread a core spins for its cores and the run slows ~15x.
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["OMP_NUM_THREADS"] = "1"
+    out = tmp_path / "EPOCH_PIPE.json"
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-c", code, str(out)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert json.loads(out.read_text())["ok"]
+    imported = [ln.rsplit("|", 1)[1].strip() for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:") and "|" in ln]
+    for mod in ("protocol_tpu_torch.node.pipeline", "protocol_tpu_torch.node.manager"):
         assert mod in imported, mod
     assert [m for m in imported if forbidden(m)] == []
 

@@ -49,6 +49,9 @@ class TestLineageSpawnBoundary:
     def test_proof_job_carries_lineage_ids(self):
         mgr = _manager()
         t = LINEAGE
+        # The tracker is process-global: entries an earlier test in this
+        # process left applied but unbound would join epoch 5's cohort.
+        t.reset()
         t.configure(1)
         try:
             lid = t.maybe_begin()
